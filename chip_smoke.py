@@ -1,0 +1,447 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's native code from the sources in this checkout (the C++
+chain core with g++, the CUDA sweep kernel with nvcc, both started at
+once), then:
+
+1. holds the hand-written sweep kernel against its plain PyTorch version
+   on the same card, bit for bit, at every difficulty class boundary and
+   at the edges of the nonce space;
+2. holds the CUDA backend against the CPU backend and the C++
+   ``cpu_search`` on random headers, starts and ranges;
+3. mines the chains the reference pinned in PERF_HISTORY.jsonl through the
+   port's entry points (``mine`` d20/n10/b20 through the CLI, d16/n30, and
+   the full-size d24/n1000 at batch 2^24 through the pipelined ``Miner``)
+   and checks their tips, with the kernel's launches counted over the
+   d24 run;
+4. times the kernel at the main path's launch shape (one early-exit
+   launch over the whole nonce space at dbits 24) and at a full 2^24
+   sweep, against the plain version and a bound taken from the compiled
+   kernel's instructions, and counts the nonces the early exit hashes.
+
+It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before the last line; with no CUDA device it fails at once.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+PINNED_TIPS = {   # PERF_HISTORY.jsonl, mined by the reference package
+    (20, 10, 20):
+        "000008584f3d49230531993ab565d6fd422b9199d8d3d0279a6b03e9c4b7f445",
+    (16, 30, 20):
+        "0000920e5985e6c7571d5094847875c2fa96ee43cff93294339fc12283597371",
+    (24, 1000, 24):
+        "000000cb3a6e7b2e520d7843bbea907d84a0ae2ecca7e882e689fad96d1cd3a5",
+}
+KERNEL_SOURCE = "mpi_blockchain_tpu_torch/ops/csrc/sha256d_sweep.cu"
+REPLACES = "mpi_blockchain_tpu/ops/sha256_pallas.py:295"
+NONCE_SPACE = 1 << 32
+TIMED_NONCES = 1 << 24
+TIMED_DBITS = 24
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi(query: str, units: bool = True) -> str:
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          f"--format={fmt}"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class ClockSampler:
+    """Samples the SM clock (MHz) and power draw (W) with nvidia-smi on a
+    thread while a run lasts."""
+
+    def __init__(self, period_s: float = 0.25):
+        self.samples: list[tuple[float, float]] = []
+        self._period = period_s
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            line = nvidia_smi("clocks.sm,power.draw", units=False)
+            self.samples.append(tuple(float(v) for v in line.split(",")))
+            self._stop.wait(self._period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def summary(self) -> dict:
+        clocks = sorted(c for c, _ in self.samples)
+        power = [p for _, p in self.samples]
+        if not clocks:
+            return {}
+        return {"samples": len(clocks), "sm_clock_mhz_min": clocks[0],
+                "sm_clock_mhz_median": clocks[len(clocks) // 2],
+                "sm_clock_mhz_max": clocks[-1],
+                "power_w_max": max(power)}
+
+
+def random_header(rng) -> bytes:
+    return rng.integers(0, 256, size=80, dtype="uint8").tobytes()
+
+
+def phase_kernel_vs_plain(rng, device):
+    """The kernel against the plain version on the card. Returns
+    (mismatches, max_abs_err)."""
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda, sha256_torch
+    from mpi_blockchain_tpu_torch.ops.sha256_sched import extend_midstate
+
+    cases = [(d, 0, 1 << 20) for d in (0, 1, 8, 31, 32, 33, 63, 64)]
+    cases += [(d, int(rng.integers(0, 1 << 31)), 1 << 18)
+              for d in (1, 8, 16)]
+    cases += [(8, 0xFFFFE000, 1 << 13),      # ends exactly at 2^32
+              (0, 0xFFFFFFFF, 1),            # the last nonce is findable
+              (TIMED_DBITS, 0, 1 << 24)]     # a full-size round
+    mismatches, max_err = 0, 0
+    for d, base, count in cases:
+        ext = extend_midstate(*core.header_midstate(random_header(rng)))
+        ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
+        for early_exit in (False, True):
+            k = sha256_cuda.sweep(ext, base, count, d, device=device,
+                                  early_exit=early_exit)
+            p = sha256_torch.sweep_core_ext(ext_t, base, count, d,
+                                            early_exit=early_exit)
+            if early_exit:
+                same = k[1] == p[1] and (k[0] > 0) == (p[0] > 0)
+                err = abs(k[1] - p[1])
+            else:
+                same = k == p
+                err = max(abs(k[0] - p[0]), abs(k[1] - p[1]))
+            max_err = max(max_err, err)
+            if not same:
+                mismatches += 1
+                log(f"MISMATCH dbits={d} base={base:#x} count={count} "
+                    f"early_exit={early_exit}: kernel {k} plain {p}")
+    torch.cuda.synchronize()
+    last = sha256_cuda.sweep(
+        extend_midstate(*core.header_midstate(random_header(rng))),
+        0xFFFFFFFF, 1, 0, device=device)
+    check(last == (1, 0xFFFFFFFF),
+          f"[0xFFFFFFFF, 2^32) at dbits 0 gave {last}, not (1, 0xFFFFFFFF)")
+    log(f"phase 1 kernel vs plain: {2 * len(cases)} comparisons, "
+        f"mismatches {mismatches}, max_abs_err {max_err}")
+    check(mismatches == 0, f"{mismatches} kernel/plain mismatches")
+    return mismatches, max_err
+
+
+def phase_backend(rng, device):
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.backend.cpu import CpuBackend
+    from mpi_blockchain_tpu_torch.backend.cuda import CudaBackend
+
+    cuda_be = CudaBackend(batch_pow2=20, kernel="cuda", device=device)
+    cpu_be = CpuBackend()
+    n = 0
+    for i in range(24):
+        hdr = random_header(rng)
+        d = int(rng.integers(4, 17))
+        if i % 4 == 0:
+            start = 0xFFFFE000 + int(rng.integers(0, 1 << 12))
+        else:
+            start = int(rng.integers(0, 1 << 32))
+        max_count = int(rng.integers(1, 1 << 20))
+        a = cuda_be.search(hdr, d, start, max_count)
+        b = cpu_be.search(hdr, d, start, max_count)
+        oracle, _ = core.cpu_search(hdr, start, max_count, d)
+        check((a.nonce, a.hash) == (b.nonce, b.hash) and a.nonce == oracle,
+              f"backend mismatch at dbits={d} start={start:#x} "
+              f"max_count={max_count}: cuda {a} cpu {b} oracle {oracle}")
+        n += 1
+    log(f"phase 2 backend: {n} searches, CudaBackend == CpuBackend == "
+        f"cpu_search")
+
+
+def phase_tips(device):
+    """Mines the pinned chains; returns the d24/n1000 run's numbers."""
+    import torch
+
+    from mpi_blockchain_tpu_torch import cli, core
+    from mpi_blockchain_tpu_torch.backend.cuda import CudaBackend
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "d20.bin")
+        sha256_cuda.launches = 0
+        rc = cli.main(["mine", "--difficulty", "20", "--blocks", "10",
+                       "--batch-pow2", "20", "--out", out])
+        launches = sha256_cuda.launches
+        check(rc == 0, f"mine d20/n10/b20 exited {rc}")
+        node = core.Node(20)
+        with open(out, "rb") as f:
+            check(node.load(f.read()), "the d20 chain file does not verify")
+    tip = node.tip_hash.hex()
+    check(tip == PINNED_TIPS[(20, 10, 20)], f"d20/n10/b20 tip {tip}")
+    check(launches == 10, f"d20/n10 made {launches} launches, not 10")
+    log(f"phase 3 d20/n10/b20 via the CLI: tip {tip} matches, "
+        f"{launches} launches")
+
+    results = {}
+    for (d, blocks, pow2), pinned in PINNED_TIPS.items():
+        if d == 20:
+            continue
+        cfg = MinerConfig(difficulty_bits=d, n_blocks=blocks,
+                          batch_pow2=pow2, backend="cuda", kernel="cuda",
+                          device="cuda")
+        backend = CudaBackend(batch_pow2=pow2, kernel="cuda", device=device)
+        miner = Miner(cfg, backend=backend, pipeline=True)
+        searches, events = 0, []
+        search, launch = backend.search, sha256_cuda.launch
+
+        def counted_search(*args, **kwargs):
+            nonlocal searches
+            searches += 1
+            return search(*args, **kwargs)
+
+        def timed_launch(*args, **kwargs):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            launch(*args, **kwargs)
+            ev[1].record()
+            events.append(ev)
+
+        backend.search = counted_search
+        sha256_cuda.launch = timed_launch
+        sha256_cuda.launches = 0
+        try:
+            with ClockSampler() as clocks:
+                t0 = time.perf_counter()
+                miner.mine_chain()
+                wall = time.perf_counter() - t0
+        finally:
+            sha256_cuda.launch = launch
+        launches = sha256_cuda.launches
+        torch.cuda.synchronize()
+        kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        tip = miner.node.tip_hash.hex()
+        check(tip == pinned, f"d{d}/n{blocks} tip {tip} != pinned {pinned}")
+        check(launches > 0 and launches == searches,
+              f"d{d}/n{blocks}: {launches} launches for {searches} "
+              f"searches")
+        # Each block's window starts at nonce 0, so the kernel hashed at
+        # least winner + 1 nonces for it.
+        least_work = sum(r.nonce + 1 for r in miner.records)
+        results[(d, blocks)] = {
+            "wall_s": wall, "launches": launches, "searches": searches,
+            "hashes_tried": miner.total_hashes(),
+            "hashes_per_s": miner.total_hashes() / wall,
+            "kernel_s": kernel_s, "least_nonces": least_work,
+            "clocks": clocks.summary()}
+        log(f"phase 3 d{d}/n{blocks}/b{pow2} via Miner (pipelined): tip "
+            f"{tip} matches; wall {wall:.6f} s, "
+            f"{miner.total_hashes() / wall:.6g} hashes/s (reference "
+            f"accounting), {launches} launches for {searches} searches; "
+            f"kernel {kernel_s:.6f} s ({kernel_s / wall:.4f} of wall), "
+            f"least nonces hashed {least_work} "
+            f"({least_work / kernel_s / 1e9:.4f} GH/s in the kernel); "
+            f"card during the run {clocks.summary()}")
+    return results[(24, 1000)]
+
+
+def time_launches(ext, base: int, count: int, early_exit: bool, reps: int,
+                  device) -> float:
+    """Median CUDA-event time (ms) of one kernel launch at dbits
+    TIMED_DBITS, the result buffer reset before each."""
+    import torch
+
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+    fresh = sha256_cuda.new_result(device)
+    out = fresh.clone()
+    events = []
+    for _ in range(reps):
+        out.copy_(fresh)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        sha256_cuda.launch(ext, base, count, TIMED_DBITS, out,
+                           early_exit=early_exit)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    return times[len(times) // 2]
+
+
+def phase_timing(rng, device):
+    """The kernel at the main path's launch shape: one early-exit launch
+    over the whole nonce space at dbits 24, for a header whose lowest
+    winner W is known. Times it, counts the nonces it hashes (measuring
+    build), times full sweeps of exactly [0, W] and of 2^24 nonces, times
+    the plain version on the early-exit input, and takes the bound from
+    the compiled loop's instruction census."""
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda, sha256_torch
+    from mpi_blockchain_tpu_torch.ops.sha256_sched import extend_midstate
+
+    # A header whose winner lies within a factor 2 of its mean 2^24, so
+    # the plain version's run stays short.
+    for _ in range(32):
+        ext = extend_midstate(*core.header_midstate(random_header(rng)))
+        found, winner = sha256_cuda.sweep(ext, 0, NONCE_SPACE, TIMED_DBITS,
+                                          device=device, early_exit=True)
+        if found and (1 << 23) <= winner < (1 << 25):
+            break
+    else:
+        raise SmokeFailure("no header in 32 draws has a dbits-24 winner in "
+                           "[2^23, 2^25)")
+    need = winner + 1
+    check(sha256_cuda.sweep(ext, 0, need, TIMED_DBITS, device=device)
+          == (1, winner), f"{winner:#x} is not the lowest qualifying nonce")
+    hashed = torch.zeros(1, dtype=torch.int64, device=device)
+    out = sha256_cuda.new_result(device)
+    sha256_cuda.launch(ext, 0, NONCE_SPACE, TIMED_DBITS, out,
+                       early_exit=True, hashed=hashed)
+    check(sha256_cuda.read_result(out)[1] == winner,
+          "the measuring build found another winner")
+    n_hashed = int(hashed.item())
+
+    with ClockSampler() as clocks:
+        ms = time_launches(ext, 0, NONCE_SPACE, True, 30, device)
+        exact_ms = time_launches(ext, 0, need, False, 30, device)
+        full_ms = time_launches(ext, 0, TIMED_NONCES, False, 50, device)
+
+    ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
+    sha256_torch.sweep_core_ext(ext_t, 0, 1 << 16, TIMED_DBITS)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = sha256_torch.sweep_core_ext(ext_t, 0, NONCE_SPACE, TIMED_DBITS,
+                                        early_exit=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(plain[1] == winner, f"the plain version found {plain[1]:#x}")
+
+    census = sha256_cuda.loop_census(sha256_cuda.disassemble(), TIMED_DBITS)
+    per_nonce = sha256_cuda.sm_clocks_per_nonce(census)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
+
+    def bound_ms(nonces: int) -> float:
+        return nonces * per_nonce / (sms * clock_mhz * 1e6) * 1e3
+
+    alu = sum(n for op, n in census.items() if op in sha256_cuda.ALU_OPCODES)
+    fma = sum(n for op, n in census.items() if op in sha256_cuda.FMA_OPCODES)
+    resident = sha256_cuda.resident_blocks(TIMED_DBITS, device)
+    log(f"phase 4 loop of the dbits-{TIMED_DBITS} kernel: "
+        f"{sum(census.values())} instructions, {alu} on the ALU pipe, "
+        f"{fma} on the FMA pipe, {per_nonce:.4f} SM clocks per nonce; by "
+        f"opcode {census}; persistent grid {resident} blocks on {sms} SMs")
+    log(f"phase 4 main-path launch (early exit over [0, 2^32), dbits "
+        f"{TIMED_DBITS}, winner {winner}): kernel {ms:.4f} ms, bound "
+        f"{bound_ms(need):.4f} ms for the {need} nonces it needs, hashed "
+        f"{n_hashed} nonces ({n_hashed / need:.4f} of the need); a full "
+        f"sweep of exactly those {need} nonces takes {exact_ms:.4f} ms; "
+        f"plain version {plain_ms:.1f} ms")
+    log(f"phase 4 full sweep of {TIMED_NONCES} nonces: kernel "
+        f"{full_ms:.4f} ms ({TIMED_NONCES / full_ms / 1e6:.4f} GH/s), bound "
+        f"{bound_ms(TIMED_NONCES):.4f} ms at {clock_mhz:.0f} MHz; card "
+        f"during the timed launches {clocks.summary()}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(need),
+            "winner": winner, "nonces_needed": need,
+            "nonces_hashed": n_hashed, "exact_sweep_ms": exact_ms,
+            "ms_per_2^24": full_ms,
+            "bound_ms_per_2^24": bound_ms(TIMED_NONCES),
+            "sm_clocks_per_nonce": per_nonce, "loop_alu_ops": alu,
+            "loop_fma_ops": fma, "loop_instructions": sum(census.values()),
+            "resident_blocks": resident, "sms": sms,
+            "sm_clock_mhz": clock_mhz}
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from mpi_blockchain_tpu_torch.core.build import ensure_built
+        from mpi_blockchain_tpu_torch.ops import sha256_cuda
+    except ImportError as e:
+        print(f"chip_smoke: FAIL: the port is not here ({e})",
+              file=sys.stderr)
+        return 1
+    try:
+        device = torch.device("cuda", 0)
+        card = nvidia_smi("name,power.limit")
+        log(card)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            builds = [pool.submit(sha256_cuda.build),
+                      pool.submit(ensure_built)]
+            for b in builds:
+                b.result()
+        log(f"built the CUDA kernel and the C++ core in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(20261016)
+        mismatches, max_err = phase_kernel_vs_plain(rng, device)
+        phase_backend(rng, device)
+        chain = phase_tips(device)
+        timing = phase_timing(rng, device)
+    except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
+            ValueError) as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    log(f"card: {card}")
+    log(json.dumps({"kernels": [{
+        "name": "sha256d_sweep", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES, "launches": chain["launches"],
+        "searches": chain["searches"], "mismatches": mismatches,
+        "max_abs_err": max_err, "bound_by": "operations", "library_ms": None,
+        **timing,
+        "d24_n1000_wall_s": chain["wall_s"],
+        "d24_n1000_hashes_per_s": chain["hashes_per_s"],
+        "d24_n1000_kernel_s": chain["kernel_s"],
+        "d24_n1000_least_nonces": chain["least_nonces"]}]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,8 +8,11 @@ chain core with g++, the CUDA sweep kernel with nvcc, both started at
 once), then:
 
 1. holds the hand-written sweep kernel against its plain PyTorch version
-   on the same card, bit for bit, at every difficulty class boundary and
-   at the edges of the nonce space;
+   on the same card, bit for bit, at every difficulty class boundary, at
+   the edges of the nonce space and at the edges of the kernel's slices
+   (two winners in different slices, a count that is not a multiple of
+   the slice, a winner in the first slice and one in the last, ragged
+   slice ending at 2^32);
 2. holds the CUDA backend against the CPU backend and the C++
    ``cpu_search`` on random headers, starts and ranges;
 3. mines the chains the reference pinned in PERF_HISTORY.jsonl through the
@@ -18,9 +21,13 @@ once), then:
    and checks their tips, with the kernel's launches counted over the
    d24 run;
 4. times the kernel at the main path's launch shape (one early-exit
-   launch over the whole nonce space at dbits 24) and at a full 2^24
-   sweep, against the plain version and a bound taken from the compiled
-   kernel's instructions, and counts the nonces the early exit hashes.
+   launch over the whole nonce space at dbits 24), beside a full sweep of
+   exactly the nonces that launch needs, and at a full 2^24 sweep, against
+   the plain version and the bound from the function's work (the compiled
+   loop's ALU-only instructions and the source's adds), and counts the
+   nonces the early exit hashes past the winner over OVERSHOOT_LAUNCHES
+   launches against one slice per resident warp (the median must stay
+   within it; the tail is printed).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -50,6 +57,11 @@ REPLACES = "mpi_blockchain_tpu/ops/sha256_pallas.py:295"
 NONCE_SPACE = 1 << 32
 TIMED_NONCES = 1 << 24
 TIMED_DBITS = 24
+# Measuring launches at the main-path shape. The overshoot past the winner
+# varies from launch to launch: warps of different blocks on one SM do not
+# progress evenly (PERF.md), and a winner in a slow warp's slice is
+# reported late.
+OVERSHOOT_LAUNCHES = 101
 
 
 class SmokeFailure(Exception):
@@ -112,6 +124,50 @@ def random_header(rng) -> bytes:
     return rng.integers(0, 256, size=80, dtype="uint8").tobytes()
 
 
+def find_header(rng, accept, tries: int = 4000) -> bytes:
+    """The first seeded random header that ``accept`` takes."""
+    for _ in range(tries):
+        hdr = random_header(rng)
+        if accept(hdr):
+            return hdr
+    raise SmokeFailure(f"no header in {tries} draws fits the case")
+
+
+def slice_edge_cases(rng, g: int):
+    """(header, dbits, base, count) cases at the edges of the kernel's
+    slices of ``g`` nonces, each found by trying seeded headers against the
+    C++ ``cpu_search``."""
+    from mpi_blockchain_tpu_torch import core
+
+    lg = g.bit_length() - 1             # dbits with about one winner per g
+    base = int(rng.integers(0, 1 << 31))
+
+    def search(hdr, d, start, count):
+        return core.cpu_search(hdr, start, count, d)[0]
+
+    def two_slices(hdr):                # the two lowest in other slices
+        lo = search(hdr, lg + 2, base, 64 * g)
+        if lo is None:
+            return False
+        hi = search(hdr, lg + 2, lo + 1, base + 64 * g - lo - 1)
+        return hi is not None and (hi - base) // g != (lo - base) // g
+
+    def first_slice(hdr):
+        return search(hdr, lg + 1, base, g) is not None
+
+    ragged = g // 2 + 3                 # the last slice's length
+    top = NONCE_SPACE - 2 * g - ragged
+
+    def last_slice(hdr):
+        return search(hdr, lg, top, 2 * g) is None and \
+            search(hdr, lg, NONCE_SPACE - ragged, ragged) is not None
+
+    return [(find_header(rng, two_slices), lg + 2, base, 64 * g),
+            (random_header(rng), 8, base, 100 * g + 13),
+            (find_header(rng, first_slice), lg + 1, base, 64 * g),
+            (find_header(rng, last_slice), lg, top, 2 * g + ragged)]
+
+
 def phase_kernel_vs_plain(rng, device):
     """The kernel against the plain version on the card. Returns
     (mismatches, max_abs_err)."""
@@ -128,9 +184,15 @@ def phase_kernel_vs_plain(rng, device):
     cases += [(8, 0xFFFFE000, 1 << 13),      # ends exactly at 2^32
               (0, 0xFFFFFFFF, 1),            # the last nonce is findable
               (TIMED_DBITS, 0, 1 << 24)]     # a full-size round
+    cases = [(None, *case) for case in cases]
+    # The slice cases draw from their own generator, so the draws of the
+    # other phases (and phase 4's header) stay as they were.
+    cases += slice_edge_cases(np.random.default_rng(20261017),
+                              sha256_cuda.SLICE_NONCES)
     mismatches, max_err = 0, 0
-    for d, base, count in cases:
-        ext = extend_midstate(*core.header_midstate(random_header(rng)))
+    for hdr, d, base, count in cases:
+        ext = extend_midstate(*core.header_midstate(
+            random_header(rng) if hdr is None else hdr))
         ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
         for early_exit in (False, True):
             k = sha256_cuda.sweep(ext, base, count, d, device=device,
@@ -276,38 +338,58 @@ def phase_tips(device):
     return results[(24, 1000)]
 
 
-def time_launches(ext, base: int, count: int, early_exit: bool, reps: int,
-                  device) -> float:
-    """Median CUDA-event time (ms) of one kernel launch at dbits
-    TIMED_DBITS, the result buffer reset before each."""
+def time_in_turns(ext, configs: dict, reps: int, expect_min: int,
+                  device) -> dict:
+    """Median CUDA-event time (ms) of one launch at dbits TIMED_DBITS for
+    each named config (``count`` and the keyword arguments of
+    ``sha256_cuda.launch``, from nonce 0), launched in turns: one of each
+    per round, in reverse order every other round, so that all share the
+    card's state. Each launch's buffer is reset first; each config's last
+    result must have ``expect_min``."""
     import torch
 
     from mpi_blockchain_tpu_torch.ops import sha256_cuda
 
     fresh = sha256_cuda.new_result(device)
-    out = fresh.clone()
-    events = []
-    for _ in range(reps):
-        out.copy_(fresh)
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        sha256_cuda.launch(ext, base, count, TIMED_DBITS, out,
-                           early_exit=early_exit)
-        ev[1].record()
-        events.append(ev)
+    outs = {name: fresh.clone() for name in configs}
+    events = {name: [] for name in configs}
+    names = list(configs)
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            cfg = dict(configs[name])
+            count = cfg.pop("count")
+            outs[name].copy_(fresh)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            sha256_cuda.launch(ext, 0, count, TIMED_DBITS, outs[name], **cfg)
+            ev[1].record()
+            events[name].append(ev)
     torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in events)
-    return times[len(times) // 2]
+    medians = {}
+    for name in names:
+        got = sha256_cuda.read_result(outs[name])[1]
+        check(got == expect_min, f"timed launch {name} found {got:#x}, "
+              f"not {expect_min:#x}")
+        times = sorted(a.elapsed_time(b) for a, b in events[name])
+        medians[name] = times[len(times) // 2]
+    return medians
+
+
+def full_sweep_min(winner: int) -> int:
+    """The lowest qualifier a sweep of [0, TIMED_NONCES) finds."""
+    return winner if winner < TIMED_NONCES else 0xFFFFFFFF
 
 
 def phase_timing(rng, device):
     """The kernel at the main path's launch shape: one early-exit launch
     over the whole nonce space at dbits 24, for a header whose lowest
-    winner W is known. Times it, counts the nonces it hashes (measuring
-    build), times full sweeps of exactly [0, W] and of 2^24 nonces, times
-    the plain version on the early-exit input, and takes the bound from
-    the compiled loop's instruction census."""
+    winner W is known. Counts the nonces it hashes (measuring build, over
+    OVERSHOOT_LAUNCHES launches) against the overshoot bound, times it in
+    turns with a full sweep of
+    exactly [0, W], times a full sweep of 2^24 nonces and the plain version
+    on the early-exit input, and takes the bound from the function's work.
+    Returns the numbers."""
     import numpy as np
     import torch
 
@@ -329,18 +411,29 @@ def phase_timing(rng, device):
     need = winner + 1
     check(sha256_cuda.sweep(ext, 0, need, TIMED_DBITS, device=device)
           == (1, winner), f"{winner:#x} is not the lowest qualifying nonce")
-    hashed = torch.zeros(1, dtype=torch.int64, device=device)
-    out = sha256_cuda.new_result(device)
-    sha256_cuda.launch(ext, 0, NONCE_SPACE, TIMED_DBITS, out,
-                       early_exit=True, hashed=hashed)
-    check(sha256_cuda.read_result(out)[1] == winner,
+    warps = sha256_cuda.resident_warps(TIMED_DBITS, device)
+    g = sha256_cuda.SLICE_NONCES
+    fresh = sha256_cuda.new_result(device)
+    outs = [fresh.clone() for _ in range(OVERSHOOT_LAUNCHES)]
+    hashed = torch.zeros(OVERSHOOT_LAUNCHES, dtype=torch.int64,
+                         device=device)
+    for i, out in enumerate(outs):
+        sha256_cuda.launch(ext, 0, NONCE_SPACE, TIMED_DBITS, out,
+                           early_exit=True, hashed=hashed[i:i + 1])
+    check(all(sha256_cuda.read_result(out)[1] == winner for out in outs),
           "the measuring build found another winner")
-    n_hashed = int(hashed.item())
+    over = sorted(int(n) - need for n in hashed.tolist())
+    median_over = over[len(over) // 2]
+    n_hashed = need + median_over
+    past_bound = sum(o > warps * g for o in over)
 
     with ClockSampler() as clocks:
-        ms = time_launches(ext, 0, NONCE_SPACE, True, 30, device)
-        exact_ms = time_launches(ext, 0, need, False, 30, device)
-        full_ms = time_launches(ext, 0, TIMED_NONCES, False, 50, device)
+        turns = time_in_turns(
+            ext, {"main": {"count": NONCE_SPACE, "early_exit": True},
+                  "exact": {"count": need}}, 30, winner, device)
+        full = time_in_turns(ext, {"full": {"count": TIMED_NONCES}}, 50,
+                             full_sweep_min(winner), device)["full"]
+    ms, exact_ms = turns["main"], turns["exact"]
 
     ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
     sha256_torch.sweep_core_ext(ext_t, 0, 1 << 16, TIMED_DBITS)  # warm-up
@@ -352,40 +445,68 @@ def phase_timing(rng, device):
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(plain[1] == winner, f"the plain version found {plain[1]:#x}")
 
-    census = sha256_cuda.loop_census(sha256_cuda.disassemble(), TIMED_DBITS)
-    per_nonce = sha256_cuda.sm_clocks_per_nonce(census)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    census = sha256_cuda.loop_census(sha256_cuda.disassemble(), TIMED_DBITS)
+    adds = sha256_cuda.source_adds(TIMED_DBITS)
+    alu_only = sha256_cuda.alu_only_count(census)
+    per_nonce = sha256_cuda.bound_sm_clocks_per_nonce(census, adds)
+    by_census = sha256_cuda.sm_clocks_per_nonce(census)
+    alu, fma, total = sha256_cuda.pipe_counts(census)
 
-    def bound_ms(nonces: int) -> float:
-        return nonces * per_nonce / (sms * clock_mhz * 1e6) * 1e3
+    def clocks_ms(nonces: int, clocks_per_nonce: float) -> float:
+        return nonces * clocks_per_nonce / (sms * clock_mhz * 1e6) * 1e3
 
-    alu = sum(n for op, n in census.items() if op in sha256_cuda.ALU_OPCODES)
-    fma = sum(n for op, n in census.items() if op in sha256_cuda.FMA_OPCODES)
+    bound, bound_full = clocks_ms(need, per_nonce), \
+        clocks_ms(TIMED_NONCES, per_nonce)
     resident = sha256_cuda.resident_blocks(TIMED_DBITS, device)
-    log(f"phase 4 loop of the dbits-{TIMED_DBITS} kernel: "
-        f"{sum(census.values())} instructions, {alu} on the ALU pipe, "
-        f"{fma} on the FMA pipe, {per_nonce:.4f} SM clocks per nonce; by "
-        f"opcode {census}; persistent grid {resident} blocks on {sms} SMs")
+    log(f"phase 4 loop of the dbits-{TIMED_DBITS} kernel: {total} "
+        f"instructions, {alu} on the ALU pipe ({alu_only} of them ALU-only), "
+        f"{fma} on the FMA pipe; by opcode {census}; the source's adds "
+        f"{adds} a nonce; bound {per_nonce:.4f} SM clocks a nonce (census "
+        f"of this build: {by_census:.4f}); persistent grid {resident} "
+        f"blocks, {warps} warps, on {sms} SMs")
     log(f"phase 4 main-path launch (early exit over [0, 2^32), dbits "
-        f"{TIMED_DBITS}, winner {winner}): kernel {ms:.4f} ms, bound "
-        f"{bound_ms(need):.4f} ms for the {need} nonces it needs, hashed "
-        f"{n_hashed} nonces ({n_hashed / need:.4f} of the need); a full "
-        f"sweep of exactly those {need} nonces takes {exact_ms:.4f} ms; "
+        f"{TIMED_DBITS}, winner {winner}, slices of {g} nonces): kernel "
+        f"{ms:.4f} ms, bound {bound:.4f} ms for the {need} nonces it needs, "
+        f"hashed {n_hashed} nonces in the median of {len(over)} measuring "
+        f"launches ({n_hashed / need:.4f} of the need): overshoot "
+        f"{median_over} against the bound {warps} warps x {g} = "
+        f"{warps * g} (over the launches: min {over[0]}, 90th percentile "
+        f"{over[len(over) * 9 // 10]}, max {over[-1]}; {past_bound} past "
+        f"the bound); a full sweep of exactly those {need} nonces takes "
+        f"{exact_ms:.4f} ms in the same turns ({ms / exact_ms:.4f} of it); "
         f"plain version {plain_ms:.1f} ms")
-    log(f"phase 4 full sweep of {TIMED_NONCES} nonces: kernel "
-        f"{full_ms:.4f} ms ({TIMED_NONCES / full_ms / 1e6:.4f} GH/s), bound "
-        f"{bound_ms(TIMED_NONCES):.4f} ms at {clock_mhz:.0f} MHz; card "
-        f"during the timed launches {clocks.summary()}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(need),
+    log(f"phase 4 full sweep of {TIMED_NONCES} nonces: kernel {full:.4f} ms "
+        f"({TIMED_NONCES / full / 1e6:.4f} GH/s), bound {bound_full:.4f} ms "
+        f"({bound_full / full:.4f} of the kernel's time; census figure "
+        f"{clocks_ms(TIMED_NONCES, by_census):.4f} ms) at {clock_mhz:.0f} "
+        f"MHz; card during the timed launches {clocks.summary()}")
+    check(median_over <= warps * g,
+          f"the early exit hashed a median {median_over} nonces past the "
+          f"need, more than one slice per resident warp ({warps * g})")
+    check(ms <= 1.15 * exact_ms,
+          f"the main-path launch took {ms:.4f} ms, more than 1.15 times the "
+          f"exact sweep of [0, W] ({exact_ms:.4f} ms)")
+    check(full >= bound_full,
+          f"the 2^24 sweep took {full:.4f} ms, under its bound "
+          f"{bound_full:.4f} ms: the bound is not a floor")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "winner": winner, "nonces_needed": need,
             "nonces_hashed": n_hashed, "exact_sweep_ms": exact_ms,
-            "ms_per_2^24": full_ms,
-            "bound_ms_per_2^24": bound_ms(TIMED_NONCES),
-            "sm_clocks_per_nonce": per_nonce, "loop_alu_ops": alu,
-            "loop_fma_ops": fma, "loop_instructions": sum(census.values()),
-            "resident_blocks": resident, "sms": sms,
-            "sm_clock_mhz": clock_mhz}
+            "ms_per_2^24": full, "bound_ms_per_2^24": bound_full,
+            "share_of_bound_2^24": bound_full / full,
+            "sm_clocks_per_nonce": per_nonce,
+            "source_adds_per_nonce": adds, "loop_alu_only_ops": alu_only,
+            "census_sm_clocks_per_nonce": by_census,
+            "census_bound_ms_per_2^24": clocks_ms(TIMED_NONCES, by_census),
+            "loop_alu_ops": alu, "loop_fma_ops": fma,
+            "loop_instructions": total, "slice_nonces": g,
+            "resident_warps": warps, "overshoot_bound": warps * g,
+            "overshoot": median_over, "overshoot_max": over[-1],
+            "overshoot_launches": len(over),
+            "overshoot_past_bound": past_bound, "resident_blocks": resident,
+            "sms": sms, "sm_clock_mhz": clock_mhz}
 
 
 def main() -> int:
@@ -436,6 +557,7 @@ def main() -> int:
         "d24_n1000_wall_s": chain["wall_s"],
         "d24_n1000_hashes_per_s": chain["hashes_per_s"],
         "d24_n1000_kernel_s": chain["kernel_s"],
+        "d24_n1000_kernel_share": chain["kernel_s"] / chain["wall_s"],
         "d24_n1000_least_nonces": chain["least_nonces"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,15 @@
 // chunk-2 word 3; the leading-zero test for a difficulty class; and the
 // result (number of qualifying nonces, lowest qualifying nonce).
 //
-// What bounds it: integer ALU work. A nonce costs a few thousand 32-bit
-// integer operations (adds, funnel-shift rotations, 3-input logic) and no
-// device-memory traffic at all: the inputs ride in the kernel's parameter
-// space and the only bytes written are the 8-byte result. The design keeps
+// What bounds it: the integer ALU pipe. A nonce costs some 3100 SASS
+// instructions (funnel-shift rotations, 3-input logic, adds) and no
+// device-memory traffic: the inputs ride in the kernel's parameter space
+// and the only bytes written are the result words. SHF, LOP3 and PRMT run
+// only on the ALU pipe (64 lanes per SM per clock); a two-input add can run
+// there or, as IMAD, on the FMA pipe, as wide. So the least a nonce can take
+// is its ALU-only instructions over 64 per SM-clock, or, where the adds
+// outweigh them, the ALU-only instructions and the source's adds spread over
+// both pipes (ops/sha256_cuda.bound_sm_clocks_per_nonce). The design keeps
 // every cycle on that work:
 //   * the 20 extended-midstate words go by value in the argument struct
 //     (uniform, so they sit in the constant bank, the twin of the TPU's
@@ -22,24 +27,48 @@
 //     is formed only when the test reads it and unused rounds' tails fold;
 //   * rotations are __funnelshift_r, ch/maj are written as 3-input forms
 //     that map to one LOP3 each, and the nonce byte-swap is one __byte_perm;
-//   * a persistent grid (the SM count times the resident blocks per SM,
-//     queried once per device) strides over the range, and the reduction
-//     is one warp vote per nonce plus one atomicAdd/atomicMin per warp that
-//     found something.
+//   * the reduction is one warp vote per nonce plus one atomicAdd/atomicMin
+//     per warp that found something.
 //
-// Early exit. TPU grid steps run in ascending order, so the Pallas kernel
-// skips every tile after the first hit. GPU blocks run in no order, and a
-// slower warp may still hold a lower qualifying nonce. So a warp skips its
-// slice only when the global minimum found so far is already below the
-// slice's first nonce, which can never lose a lower winner. With early exit
-// the count is only a found-flag, as in the reference. The warps of the
-// grid-stride split do not advance in step, so an early-exit launch hashes
-// well past the winner; the measuring build (kCountHashed) counts by how
-// much.
+// Pipe balance. Every add of the rounds and the schedule is written as
+// x * one + y, where `one` is 1 in the arguments, so the compiler cannot
+// fold the multiply and issues it as IMAD on the FMA pipe instead of IADD3
+// on the ALU pipe. The ALU pipe is then left with the work only it can do
+// (SHF, LOP3, PRMT: about 1900 instructions a nonce) and the FMA pipe,
+// which otherwise idles, takes the adds (about 1100). On an NVIDIA H100
+// 80GB HBM3 at a 700 W power limit this made the full sweep 7% faster than
+// moving only the adds off a round's critical path, and 11% faster than
+// leaving the adds to the compiler, though the build needs more registers
+// and holds 4 blocks per SM instead of 5 (PERF.md; these variants are
+// rebuilt and timed by mpi_blockchain_tpu_torch/tools/sweep_variants.py).
 //
-// The result buffer is two uint32 words {count, min}; the caller resets it
-// to {0, 0xFFFFFFFF} before each launch. 0xFFFFFFFF is a real nonce too: a
-// caller tells "none" from "found 0xFFFFFFFF" by count > 0.
+// Work distribution and early exit. A persistent grid (the SM count times
+// the resident blocks per SM, queried once per device) takes work from a
+// queue: lane 0 of a warp takes the next slice index from a 64-bit atomic
+// cursor and broadcasts it, a slice being 32 consecutive nonces, one per
+// lane (on the H100 above, slices of 64 to 256 nonces were no faster,
+// PERF.md). Slices are handed out in ascending order whatever the order in
+// which warps run, so every slice below the lowest winner is handed out
+// before any slice above it. With early exit a warp stops when the minimum
+// found so far is below its next slice's first nonce; since later slices
+// only ascend, that can never lose a lower winner, which some slower warp
+// may still hold. The work past the winner is then the slices taken while
+// the winner's own slice was in flight: about one slice per resident warp
+// when warps progress alike. On the H100 above, warps of one block do, but
+// warps of different blocks on one SM do not, so a winner in a slow warp's
+// slice is reported late and some launches run several slices per warp
+// past it. Blocks of 1024 threads, one per SM, remove that tail but made
+// the mean launch slower (PERF.md).
+// A static grid-stride split instead lets warps drift far out of step, and
+// an early-exit launch then hashes several times the nonces the winner
+// needs. With early exit the count is only a found-flag, as in the
+// reference. The measuring build (kCountHashed) adds the nonces of each
+// slice it takes to a counter, which shows the overshoot.
+//
+// The result buffer is four uint32 words {count, min, cursor_lo, cursor_hi},
+// 8-byte aligned; the caller resets it to {0, 0xFFFFFFFF, 0, 0} before each
+// launch. 0xFFFFFFFF is a real nonce too: a caller tells "none" from "found
+// 0xFFFFFFFF" by count > 0.
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -50,6 +79,7 @@ namespace {
 
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kBlock = 256;
+constexpr unsigned long long kSlice = 32;  // nonces per slice, one a lane
 constexpr int kMaxDevices = 64;  // devices whose resident grid is cached
 
 __constant__ uint32_t kK[64] = {
@@ -82,6 +112,7 @@ struct SweepArgs {
   unsigned long long count;  // nonces to sweep; base + count <= 2^32
   uint32_t h0_limit;         // class <32: qualifies when h0 < h0_limit
   uint32_t h1_limit;         // class 33..63: h0 == 0 and h1 < h1_limit
+  uint32_t one;              // 1, opaque to the compiler (add_on_fma)
   int early_exit;
 };
 
@@ -110,27 +141,44 @@ __device__ __forceinline__ uint32_t maj(uint32_t a, uint32_t b, uint32_t c) {
   return b ^ ((a ^ b) & (b ^ c));
 }
 
-// Message schedule words w[first..63] from the words below them.
+// x + y as x * one + y, an IMAD on the FMA pipe: `one` is 1 at run time,
+// which the compiler cannot see, so it cannot turn the IMAD back into an
+// add on the ALU pipe.
+__device__ __forceinline__ uint32_t add_on_fma(uint32_t x, uint32_t y,
+                                               uint32_t one) {
+  return x * one + y;
+}
+
+// Message schedule words w[first..63] from the words below them. The newest
+// word's sigma comes last, so the sum of the three older terms is ready
+// early.
 template <int kFirst>
-__device__ __forceinline__ void expand(uint32_t (&w)[64]) {
+__device__ __forceinline__ void expand(uint32_t (&w)[64], uint32_t one) {
 #pragma unroll
   for (int r = kFirst; r < 64; ++r)
-    w[r] = small_sigma1(w[r - 2]) + w[r - 7] + small_sigma0(w[r - 15]) +
-           w[r - 16];
+    w[r] = add_on_fma(
+        small_sigma1(w[r - 2]),
+        add_on_fma(add_on_fma(w[r - 16], w[r - 7], one),
+                   small_sigma0(w[r - 15]), one),
+        one);
 }
 
 // Rounds [kFirst, 64) of a compression, in place on s = {a..h}.
 template <int kFirst>
 __device__ __forceinline__ void rounds(uint32_t (&s)[8],
-                                       const uint32_t (&w)[64]) {
+                                       const uint32_t (&w)[64],
+                                       uint32_t one) {
   uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
   uint32_t e = s[4], f = s[5], g = s[6], h = s[7];
 #pragma unroll
   for (int r = kFirst; r < 64; ++r) {
-    const uint32_t t1 = h + big_sigma1(e) + ch(e, f, g) + kK[r] + w[r];
-    const uint32_t t2 = big_sigma0(a) + maj(a, b, c);
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + t2;
+    // h + K + w is known a round early: off the critical path.
+    const uint32_t t1 = add_on_fma(
+        add_on_fma(add_on_fma(h, kK[r] + w[r], one), big_sigma1(e), one),
+        ch(e, f, g), one);
+    const uint32_t t2 = add_on_fma(big_sigma0(a), maj(a, b, c), one);
+    h = g; g = f; f = e; e = add_on_fma(d, t1, one);
+    d = c; c = b; b = a; a = add_on_fma(t1, t2, one);
   }
   s[0] = a; s[1] = b; s[2] = c; s[3] = d;
   s[4] = e; s[5] = f; s[6] = g; s[7] = h;
@@ -155,10 +203,10 @@ __device__ __forceinline__ void sha256d_h01(const SweepArgs& args,
   w[17] = ext[kExtW17];
   w[18] = ext[kExtRc18] + small_sigma0(w3);
   w[19] = w3 + ext[kExtRc19];
-  expand<20>(w);
+  expand<20>(w, args.one);
   uint32_t s[8] = {ext[kExtRcA] + w3, ext[kExtA2], ext[kExtA1], ext[kExtA0],
                    ext[kExtRcE] + w3, ext[kExtE2], ext[kExtE1], ext[kExtE0]};
-  rounds<4>(s, w);
+  rounds<4>(s, w, args.one);
 
   // Hash 2 over the 32-byte digest: its words are the message directly.
   uint32_t w2[64];
@@ -168,9 +216,9 @@ __device__ __forceinline__ void sha256d_h01(const SweepArgs& args,
 #pragma unroll
   for (int i = 9; i < 15; ++i) w2[i] = 0;
   w2[15] = 32 * 8;
-  expand<16>(w2);
+  expand<16>(w2, args.one);
   uint32_t s2[8] = {kIV0, kIV1, kIV2, kIV3, kIV4, kIV5, kIV6, kIV7};
-  rounds<0>(s2, w2);
+  rounds<0>(s2, w2, args.one);
   h0 = s2[0] + kIV0;
   h1 = s2[1] + kIV1;
 }
@@ -185,35 +233,40 @@ __device__ __forceinline__ bool qualifies(uint32_t h0, uint32_t h1,
   return h0 == 0 && h1 == 0;
 }
 
-// kCountHashed is a measuring build: each warp also adds the nonces it
-// hashes to *hashed, which shows how far early exit overshoots the winner.
+// One trip of the loop takes a slice from the cursor and hashes one nonce
+// per lane. kCountHashed is a measuring build: each warp also adds the
+// nonces of each slice it takes to *hashed, which shows how far early exit
+// overshoots the winner.
 template <int kMode, bool kCountHashed>
 __global__ void __launch_bounds__(kBlock)
     sha256d_sweep_kernel(const SweepArgs args, uint32_t* __restrict__ out,
                          unsigned long long* __restrict__ hashed) {
   const unsigned lane = threadIdx.x & 31u;
-  const unsigned long long stride =
-      static_cast<unsigned long long>(gridDim.x) * blockDim.x;
-  for (unsigned long long i =
-           static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
-           threadIdx.x;;
-       i += stride) {
-    // The warp's first index: uniform across the warp, so every branch
-    // below is taken by all 32 lanes together.
-    const unsigned long long first = i - lane;
+  auto* const cursor = reinterpret_cast<unsigned long long*>(out + 2);
+  for (;;) {
+    // Everything up to the hash is uniform across the warp, so every branch
+    // is taken by all 32 lanes together.
+    unsigned long long taken = 0;
+    uint32_t best = 0;
+    if (lane == 0) {
+      taken = atomicAdd(cursor, 1ull);
+      if (args.early_exit)
+        best = *reinterpret_cast<volatile uint32_t*>(out + 1);
+    }
+    const unsigned long long first =
+        __shfl_sync(kFullMask, taken, 0) * kSlice;
     if (first >= args.count) break;
     if (args.early_exit) {
-      uint32_t best = 0;
-      if (lane == 0) best = *reinterpret_cast<volatile uint32_t*>(out + 1);
+      // Slices are handed out in ascending order, so once the minimum is
+      // below this one it is below every slice this warp could take.
       best = __shfl_sync(kFullMask, best, 0);
-      // Slices ascend along this warp's loop, so once one is above the
-      // minimum every later one is too.
       if (best < args.base + first) break;
     }
     if (kCountHashed && lane == 0) {
       const unsigned long long left = args.count - first;
-      atomicAdd(hashed, left < 32 ? left : 32ull);
+      atomicAdd(hashed, left < kSlice ? left : kSlice);
     }
+    const unsigned long long i = first + lane;
     const uint32_t nonce = static_cast<uint32_t>(args.base + i);
     uint32_t h0, h1;
     sha256d_h01(args, nonce, h0, h1);
@@ -259,7 +312,9 @@ int launch(const SweepArgs& args, uint32_t* out, unsigned long long* hashed,
   unsigned long long resident = 0;
   const cudaError_t err = resident_blocks<kMode, kCountHashed>(&resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long needed = (args.count + kBlock - 1) / kBlock;
+  // A warp needs at least one slice; more blocks would find the queue empty.
+  const unsigned long long slices = (args.count + kSlice - 1) / kSlice;
+  const unsigned long long needed = (slices + kBlock / 32 - 1) / (kBlock / 32);
   const unsigned grid =
       static_cast<unsigned>(needed < resident ? needed : resident);
   sha256d_sweep_kernel<kMode, kCountHashed>
@@ -283,21 +338,25 @@ int launch_mode(int difficulty_bits, const SweepArgs& args, uint32_t* out,
 extern "C" {
 
 // Enqueues one sweep of [base, base + count) on `stream`; `out` is the
-// device result buffer {count, min}, reset by the caller. Returns the CUDA
-// error code of the launch (0 on success). count must be >= 1 and
-// base + count <= 2^32; difficulty_bits <= 64 (<= 0 qualifies every nonce).
-// A non-null `hashed` (a device uint64) selects the measuring build, which
-// adds the number of nonces it hashed there.
+// device result buffer {count, min, cursor_lo, cursor_hi}, 8-byte aligned
+// and reset by the caller to {0, 0xFFFFFFFF, 0, 0}. Returns the CUDA error
+// code of the launch (0 on success). count must be >= 1 and
+// base + count <= 2^32; difficulty_bits <= 64 (<= 0 qualifies every
+// nonce). A non-null `hashed`
+// (a device uint64) selects the measuring build, which adds the number of
+// nonces it hashed there.
 int sha256d_sweep_launch(const uint32_t* ext, unsigned long long base,
                          unsigned long long count, int difficulty_bits,
-                         int early_exit, void* out, void* hashed,
-                         void* stream) {
-  if (count == 0 || base + count > (1ull << 32) || difficulty_bits > 64)
+                         int early_exit, void* out,
+                         void* hashed, void* stream) {
+  if (count == 0 || base + count > (1ull << 32) || difficulty_bits > 64 ||
+      reinterpret_cast<uintptr_t>(out) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   SweepArgs args;
   std::memcpy(args.ext, ext, sizeof(args.ext));
   args.base = base;
   args.count = count;
+  args.one = 1;
   args.early_exit = early_exit;
   const int d = difficulty_bits;
   args.h0_limit = (d > 0 && d < 32) ? (1u << (32 - d)) : 0u;
@@ -323,6 +382,9 @@ long long sha256d_sweep_resident_blocks(int difficulty_bits) {
   return err == cudaSuccess ? static_cast<long long>(blocks)
                             : -static_cast<long long>(err);
 }
+
+// Threads in a block of the persistent grid.
+int sha256d_sweep_block_threads() { return kBlock; }
 
 // The CUDA runtime's message for an error code returned above.
 const char* sha256d_sweep_error_string(int code) {

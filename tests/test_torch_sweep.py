@@ -11,7 +11,9 @@ with three oracles over the same seeded inputs:
 * a hashlib double SHA-256 that shares no code with either package.
 
 Tolerance 0: proof of work has no near-match. The CUDA kernel itself runs
-only on a card (``cuda`` marker).
+only on a card: ``test_torch_sweep_cuda.py`` holds it against the plain
+version there. Here, its wrapper's contract on the CPU and the pieces of
+its bound (the loop census, the source's adds) are checked.
 """
 import hashlib
 
@@ -197,20 +199,126 @@ def test_bound_takes_the_busiest_pipe():
     assert clocks({"IADD3": 64, "IMAD": 64, "ULDC": 128}) == 256 / 128
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dbits", DBITS)
-def test_cuda_kernel_matches_plain_on_the_card(dbits):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    device = torch.device("cuda")
-    ext = _ext(_header(400 + dbits))
-    ext_t = convert.ext_from_reference(ext, device)
-    for base, count in ((0, 1 << 18), (0xFFFFE000, BATCH)):
-        for early_exit in (False, True):
-            k = sha256_cuda.sweep(ext, base, count, dbits, device=device,
-                                  early_exit=early_exit)
-            p = sha256_torch.sweep_core_ext(ext_t, base, count, dbits,
-                                            early_exit=early_exit)
-            assert k[1] == p[1] and (k[0] > 0) == (p[0] > 0)
-            if not early_exit:
-                assert k == p
+def test_result_buffer_layout_and_its_validation():
+    """{count, min, cursor_lo, cursor_hi}: the cursor is a uint64 starting
+    at 0, so the buffer is four int32 words, 8-byte aligned."""
+    out = sha256_cuda.new_result(torch.device("cpu"))
+    assert out.dtype == torch.int32 and out.tolist() == [0, -1, 0, 0]
+    assert sha256_cuda.RESULT_WORDS == 4
+    sha256_cuda.check_result_buffer(out)
+    wrong = [torch.tensor([0, -1], dtype=torch.int32),    # two words
+             torch.tensor([0, -1, 0, 0], dtype=torch.int64),
+             torch.zeros(8, dtype=torch.int32)[::2],            # strided
+             torch.zeros(5, dtype=torch.int32)[1:]]             # 4 bytes in
+    for buf in wrong:
+        with pytest.raises(ValueError, match="new_result"):
+            sha256_cuda.check_result_buffer(buf)
+    ext = _ext(_header(10))
+    with pytest.raises(ValueError, match="CUDA"):
+        sha256_cuda.launch(ext, 0, BATCH, 8, out)
+
+
+# The queue loop's shape: a slice-taking block (atomic on the cursor,
+# shuffles, the early-exit test) inside the loop, closed by a backward
+# branch after the vote; here with two nonces hashed per trip.
+_SASS_QUEUE = """
+        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0EEEvNS_9SweepArgsEPjPy
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.NE.AND P0, PT, R30, c[0x0][0x25c], PT ;
+        /*0020*/               @P0 BRA 0x70 ;
+        /*0030*/                   ATOMG.E.ADD.64.STRONG.GPU PT, R4, [R2.64], R4 ;
+        /*0040*/                   SHFL.IDX PT, R5, R4, RZ, 0x1f ;
+        /*0050*/                   ISETP.GE.U32.AND P1, PT, R5, c[0x0][0x250], PT ;
+        /*0060*/               @P1 EXIT ;
+        /*0070*/                   SHF.R.W.U32.HI R5, R2, 0x7, R2 ;
+        /*0080*/                   LOP3.LUT R6, R5, R3, R2, 0x96, !PT ;
+        /*0090*/                   IMAD R7, R6, c[0x0][0x258], R5 ;
+        /*00a0*/                   SHF.R.W.U32.HI R8, R7, 0x7, R7 ;
+        /*00b0*/                   LOP3.LUT R9, R8, R3, R7, 0x96, !PT ;
+        /*00c0*/                   IMAD R10, R9, c[0x0][0x258], R8 ;
+        /*00d0*/                   VOTE.ANY R11, PT, P2 ;
+        /*00e0*/              @!P3 BRA 0x10 ;
+        /*00f0*/                   EXIT ;
+        /*0100*/                   BRA 0x100 ;
+"""
+
+
+def test_census_names_the_template_and_divides_by_the_nonces_per_trip():
+    assert sha256_cuda.kernel_symbol(24) == "sha256d_sweep_kernelILi1ELb0E"
+    assert sha256_cuda.kernel_symbol(40, count_hashed=True) \
+        == "sha256d_sweep_kernelILi3ELb1E"
+    census = sha256_cuda.loop_census(_SASS_QUEUE, 24)
+    assert census == {"ISETP": 2, "BRA": 2, "SHF": 2, "LOP3": 2, "IMAD": 2,
+                      "ATOMG": 1, "SHFL": 1, "EXIT": 1, "VOTE": 1}
+    assert sha256_cuda.pipe_counts(census) == (6, 2, 14)
+    clocks = sha256_cuda.sm_clocks_per_nonce
+    assert sha256_cuda.NONCES_PER_TRIP == 1
+    # 14 instructions issue in 14/128 of a clock, above 6 ALU ops / 64.
+    assert clocks(census) == 14 / 128
+    assert clocks(census, nonces_per_trip=2) == 14 / 128 / 2
+    with pytest.raises(ValueError, match="nonces_per_trip"):
+        clocks(census, nonces_per_trip=0)
+
+
+def test_bound_counts_the_function_work_not_the_pipe_split():
+    """ALU-only instructions fill the ALU pipe; adds go on either pipe, one
+    an IMAD or two an IADD3, so how the compiler split them does not move
+    the bound."""
+    bound = sha256_cuda.bound_sm_clocks_per_nonce
+    split_a = {"SHF": 100, "LOP3": 28, "IADD3": 50, "IMAD": 80, "BRA": 1}
+    split_b = {"SHF": 100, "LOP3": 28, "IADD3": 5, "IMAD": 170, "BRA": 1}
+    assert sha256_cuda.alu_only_count(split_a) == 128
+    # 128 ALU-only ops take 2 clocks; 64 adds fit on the FMA pipe beside.
+    assert bound(split_a, 64) == bound(split_b, 64) == 128 / 64
+    # 400 adds do not: the best split gives (2 * 128 + 400) / 192.
+    assert bound(split_a, 400) == (2 * 128 + 400) / 192
+    assert bound(split_a, 64, nonces_per_trip=2) == 128 / 64 / 2
+    with pytest.raises(ValueError, match="nonces_per_trip"):
+        bound(split_a, 64, nonces_per_trip=0)
+    # The census figure follows the split; the bound never exceeds it.
+    census = sha256_cuda.sm_clocks_per_nonce
+    assert census(split_a) == 178 / 64 and census(split_b) == 170 / 64
+    assert bound(split_a, 64) <= min(census(split_a), census(split_b))
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_source_add_replay_is_the_kernel_function(seed):
+    """The replay behind ``source_adds`` computes sha256d's h0, h1 on
+    integers, so its adds are the function's."""
+    hdr = _header(seed)
+    nonce = int(np.random.default_rng(seed).integers(0, 1 << 32))
+    ext = [int(x) for x in _ext(hdr)]
+    w3 = int.from_bytes(nonce.to_bytes(4, "little"), "big")
+    buf = bytearray(hdr)
+    buf[76:80] = nonce.to_bytes(4, "little")
+    digest = hashlib.sha256(hashlib.sha256(bytes(buf)).digest()).digest()
+    assert sha256_cuda._replay_h01(ext, w3) == (
+        int.from_bytes(digest[:4], "big"), int.from_bytes(digest[4:8], "big"))
+
+
+def test_source_adds_follow_what_the_class_reads():
+    adds = sha256_cuda.source_adds
+    # Class 0 reads no digest word; the h0 classes share one count; h1
+    # costs its one feed-forward add (the rest of it is h0's work).
+    assert adds(0) == 0
+    assert adds(1) == adds(24) == adds(31) == adds(32) > 1000
+    assert adds(33) == adds(63) == adds(64) == adds(24) + 1
+    # Fewer than a plain count of the two compressions (7 adds a round, 3
+    # a schedule word, the feed-forward words): constants and
+    # loop-invariant terms fold, dead tails drop.
+    assert adds(24) < 7 * (60 + 64) + 3 * (44 + 48) + 8 + 1
+
+
+def test_sweep_variants_patch_the_current_source(monkeypatch):
+    from mpi_blockchain_tpu_torch.tools import sweep_variants
+    source = sha256_cuda.SOURCE.read_text()
+    assert sweep_variants.variant_source("shipped") == source
+    for name in sweep_variants.VARIANTS:
+        if name != "shipped":
+            assert sweep_variants.variant_source(name) != source
+        assert sweep_variants.PER_WARP[1] in sweep_variants.variant_source(
+            name, per_warp=True)
+    monkeypatch.setitem(sweep_variants.VARIANTS, "stale",
+                        [("no such text", "")])
+    with pytest.raises(ValueError, match="0 times"):
+        sweep_variants.variant_source("stale")

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's native code from the sources in this checkout (the C++
-chain core with g++, the CUDA sweep kernel with nvcc, both started at
-once), then:
+chain core with g++, the CUDA kernels with nvcc, both started at once),
+then:
 
 1. holds the hand-written sweep kernel against its plain PyTorch version
    on the same card, bit for bit, at every difficulty class boundary, at
@@ -27,11 +27,23 @@ once), then:
    loop's ALU-only instructions and the source's adds), and counts the
    nonces the early exit hashes past the winner over OVERSHOOT_LAUNCHES
    launches against one slice per resident warp (the median must stay
-   within it; the tail is printed).
+   within it; the tail is printed); and, in the same turns as the 2^24
+   sweep, the sweep that reads the extended midstate from the library's
+   ``__constant__`` symbol, with the registers and blocks per SM of both;
+5. drives the fused k-block miner (``mine --fused``): its step kernel
+   against the plain step on the card, bit for bit, over seeded
+   prev/data/height and the sentinel nonce; the constant-ext sweep against
+   the by-value sweep at the slice edges; the step kernel's time; then the
+   pinned d16/n30 (16 blocks a call) and d24/n1000 (100 a call) through
+   ``FusedMiner``, their tips against the pins, with the sweep and step
+   launches, the host waits per call and PyTorch's count of hidden syncs,
+   the wall beside the pipelined ``Miner``'s of phase 3, and, in a second
+   run, the sweeps' share of the wall from CUDA events.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before the last line; with no CUDA device it fails at once.
+before the last line; with no CUDA device it fails at once. It takes about
+two minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 PINNED_TIPS = {   # PERF_HISTORY.jsonl, mined by the reference package
     (20, 10, 20):
@@ -54,6 +67,14 @@ PINNED_TIPS = {   # PERF_HISTORY.jsonl, mined by the reference package
 }
 KERNEL_SOURCE = "mpi_blockchain_tpu_torch/ops/csrc/sha256d_sweep.cu"
 REPLACES = "mpi_blockchain_tpu/ops/sha256_pallas.py:295"
+# The fused miner's step kernel replaces the reference's jnp header build
+# and winner digest (no Pallas kernel).
+STEP_REPLACES = "mpi_blockchain_tpu/models/fused.py:89"
+# Pinned chains mined by the fused miner, and the blocks of each call.
+FUSED_RUNS = {(16, 30, 20): 16, (24, 1000, 24): 100}
+STEP_CASES = 64
+STEP_TIMED_LAUNCHES = 1000
+M32 = 0xFFFFFFFF
 NONCE_SPACE = 1 << 32
 TIMED_NONCES = 1 << 24
 TIMED_DBITS = 24
@@ -341,11 +362,11 @@ def phase_tips(device):
 def time_in_turns(ext, configs: dict, reps: int, expect_min: int,
                   device) -> dict:
     """Median CUDA-event time (ms) of one launch at dbits TIMED_DBITS for
-    each named config (``count`` and the keyword arguments of
-    ``sha256_cuda.launch``, from nonce 0), launched in turns: one of each
-    per round, in reverse order every other round, so that all share the
-    card's state. Each launch's buffer is reset first; each config's last
-    result must have ``expect_min``."""
+    each named config (``count``, optionally its own ``ext``, and the
+    keyword arguments of ``sha256_cuda.launch``, from nonce 0), launched in
+    turns: one of each per round, in reverse order every other round, so
+    that all share the card's state. Each launch's buffer is reset first;
+    each config's last result must have ``expect_min``."""
     import torch
 
     from mpi_blockchain_tpu_torch.ops import sha256_cuda
@@ -358,11 +379,13 @@ def time_in_turns(ext, configs: dict, reps: int, expect_min: int,
         for name in (names if rep % 2 == 0 else names[::-1]):
             cfg = dict(configs[name])
             count = cfg.pop("count")
+            launch_ext = cfg.pop("ext", ext)
             outs[name].copy_(fresh)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            sha256_cuda.launch(ext, 0, count, TIMED_DBITS, outs[name], **cfg)
+            sha256_cuda.launch(launch_ext, 0, count, TIMED_DBITS, outs[name],
+                               **cfg)
             ev[1].record()
             events[name].append(ev)
     torch.cuda.synchronize()
@@ -431,9 +454,17 @@ def phase_timing(rng, device):
         turns = time_in_turns(
             ext, {"main": {"count": NONCE_SPACE, "early_exit": True},
                   "exact": {"count": need}}, 30, winner, device)
-        full = time_in_turns(ext, {"full": {"count": TIMED_NONCES}}, 50,
-                             full_sweep_min(winner), device)["full"]
+        ext_device = torch.from_numpy(ext).to(device)
+        fulls = time_in_turns(
+            ext, {"full": {"count": TIMED_NONCES},
+                  "full_ext_symbol": {"count": TIMED_NONCES,
+                                      "ext": ext_device}},
+            50, full_sweep_min(winner), device)
+    full, full_symbol = fulls["full"], fulls["full_ext_symbol"]
     ms, exact_ms = turns["main"], turns["exact"]
+    regs, per_sm = sha256_cuda.occupancy(TIMED_DBITS, device)
+    regs_symbol, per_sm_symbol = sha256_cuda.occupancy(TIMED_DBITS, device,
+                                                       ext_from_symbol=True)
 
     ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
     sha256_torch.sweep_core_ext(ext_t, 0, 1 << 16, TIMED_DBITS)  # warm-up
@@ -482,6 +513,10 @@ def phase_timing(rng, device):
         f"({bound_full / full:.4f} of the kernel's time; census figure "
         f"{clocks_ms(TIMED_NONCES, by_census):.4f} ms) at {clock_mhz:.0f} "
         f"MHz; card during the timed launches {clocks.summary()}")
+    log(f"phase 4 the same sweep with ext from the __constant__ symbol, in "
+        f"the same turns: {full_symbol:.4f} ms ({full_symbol / full:.4f} of "
+        f"the by-value build's); registers {regs} by value, {regs_symbol} "
+        f"from the symbol; blocks per SM {per_sm} and {per_sm_symbol}")
     check(median_over <= warps * g,
           f"the early exit hashed a median {median_over} nonces past the "
           f"need, more than one slice per resident warp ({warps * g})")
@@ -495,6 +530,10 @@ def phase_timing(rng, device):
             "winner": winner, "nonces_needed": need,
             "nonces_hashed": n_hashed, "exact_sweep_ms": exact_ms,
             "ms_per_2^24": full, "bound_ms_per_2^24": bound_full,
+            "ms_per_2^24_ext_symbol": full_symbol,
+            "ext_symbol_over_by_value_2^24": full_symbol / full,
+            "registers": regs, "registers_ext_symbol": regs_symbol,
+            "blocks_per_sm": per_sm, "blocks_per_sm_ext_symbol": per_sm_symbol,
             "share_of_bound_2^24": bound_full / full,
             "sm_clocks_per_nonce": per_nonce,
             "source_adds_per_nonce": adds, "loop_alu_only_ops": alu_only,
@@ -507,6 +546,262 @@ def phase_timing(rng, device):
             "overshoot_launches": len(over),
             "overshoot_past_bound": past_bound, "resident_blocks": resident,
             "sms": sms, "sm_clock_mhz": clock_mhz}
+
+
+def phase_step(rng, device, clock_mhz: float):
+    """The fused step kernel against the plain step on the card, bit for
+    bit: for STEP_CASES seeded (prev, data, height, nonces) it builds a
+    block, finalizes it with the first nonce and builds the next, then
+    finalizes that into the tip, with the sentinel among the nonces; the
+    plain version computes all cases at once. Then times the kernel (a
+    finalize-and-build step, STEP_TIMED_LAUNCHES launches back to back)
+    and the plain step. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+    from mpi_blockchain_tpu_torch.ops.sha256_block import (
+        block_template, winner_digest)
+
+    n, d = STEP_CASES, TIMED_DBITS
+    prev = rng.integers(0, 1 << 32, (n, 8), dtype=np.uint32)
+    data = rng.integers(0, 1 << 32, (n, 2, 8), dtype=np.uint32)
+    heights = rng.integers(0, 1 << 32, n)
+    nonces = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint32)
+    nonces[0, 0] = nonces[1, 1] = M32
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    prev_t, data_t = card(prev), card(data)
+    built, both = [], []
+    nonce_out = torch.zeros((n, 2), dtype=torch.uint32, device=device)
+    tips = torch.zeros((n, 8), dtype=torch.uint32, device=device)
+    for i in range(n):
+        h = int(heights[i])
+        scratch = sha256_block.new_scratch(device)
+        sha256_block.step(scratch, prev=prev_t[i], data=data_t[i, 0],
+                          height=h, difficulty_bits=d)
+        built.append(scratch.clone())
+        scratch.view(torch.uint32)[1] = int(nonces[i, 0])
+        sha256_block.step(scratch, data=data_t[i, 1], height=h + 1,
+                          difficulty_bits=d, nonce_out=nonce_out[i, :1])
+        both.append(scratch.clone())
+        scratch.view(torch.uint32)[1] = int(nonces[i, 1])
+        sha256_block.step(scratch, nonce_out=nonce_out[i, 1:],
+                          tip_out=tips[i])
+    torch.cuda.synchronize()
+
+    h_t = torch.from_numpy(heights.astype(np.int64)).to(device)
+    n_t = sha256_block.to_words(card(nonces))
+    reset = torch.tensor([0, M32, 0, 0], dtype=torch.int64,
+                         device=device).expand(n, 4)
+    ms, tail, ext = block_template(prev_t, data_t[:, 0], h_t, d)
+    want_built = torch.cat([reset, ext, ms, tail], dim=1)
+    digest = winner_digest(ms, tail, n_t[:, 0])
+    ms2, tail2, ext2 = block_template(digest, data_t[:, 1], h_t + 1, d)
+    want_both = torch.cat([reset, ext2, ms2, tail2], dim=1)
+    want_tip = winner_digest(ms2, tail2, n_t[:, 1])
+    got = [sha256_block.to_words(t) for t in (torch.stack(built),
+                                               torch.stack(both), nonce_out,
+                                               tips)]
+    want = [want_built, want_both, n_t, want_tip]
+    diff = torch.cat([(g - w).abs() for g, w in zip(got, want)], dim=1)
+    mismatches = int((diff.amax(dim=1) > 0).sum())
+    max_err = int(diff.max())
+    log(f"phase 5 step kernel vs plain: {n} cases x 3 steps (build, "
+        f"finalize and build, finalize into the tip; sentinel nonce in 2), "
+        f"mismatches {mismatches}, max_abs_err {max_err}")
+    check(mismatches == 0, f"{mismatches} step kernel/plain mismatches")
+
+    scratch = sha256_block.new_scratch(device)
+    sha256_block.step(scratch, prev=prev_t[0], data=data_t[0, 0],
+                      height=int(heights[0]), difficulty_bits=d)
+    slot = torch.zeros(1, dtype=torch.uint32, device=device)
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(STEP_TIMED_LAUNCHES):
+        sha256_block.step(scratch, data=data_t[0, 1], height=1,
+                          difficulty_bits=d, nonce_out=slot)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms_step = ev[0].elapsed_time(ev[1]) / STEP_TIMED_LAUNCHES
+    plain = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sha256_block.step_plain(scratch, data=data_t[0, 1], height=1,
+                                difficulty_bits=d, nonce_out=slot)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = sorted(plain)[len(plain) // 2]
+    ops = sha256_block.STEP_DEPENDENT_OPS
+    bound_ops = ops / (clock_mhz * 1e6) * 1e3
+    # Bytes: the data words, the previous midstate, template and result
+    # read; the nonce and the new scratch written.
+    step_bytes = 4 * (8 + 24 + 4 + 1 + sha256_block.SCRATCH_WORDS)
+    bound_bytes = step_bytes / 3.35e12 * 1e3
+    bound = max(bound_ops, bound_bytes)
+    # One thread issues at most one instruction a clock: the compiled
+    # step's length is a floor of the design (not of the function).
+    census = sha256_cuda.function_census(sha256_cuda.disassemble(),
+                                         sha256_cuda.STEP_KERNEL_SYMBOL)
+    instructions = sum(census.values())
+    log(f"phase 5 step kernel (finalize and build, {STEP_TIMED_LAUNCHES} "
+        f"launches back to back): {ms_step * 1e3:.4f} us a launch; bound "
+        f"{bound * 1e3:.4f} us ({ops} dependent operations at one clock "
+        f"each, {clock_mhz:.0f} MHz; {step_bytes} bytes take "
+        f"{bound_bytes * 1e6:.4f} ns); the compiled kernel has "
+        f"{instructions} instructions ({instructions / clock_mhz:.4f} us "
+        f"at one a clock), by opcode {census}; plain step on the card "
+        f"{plain_ms:.3f} ms")
+    return {"mismatches": mismatches, "max_abs_err": max_err,
+            "ms": ms_step, "plain_ms": plain_ms, "bound_ms": bound,
+            "dependent_ops": ops, "bytes": step_bytes,
+            "instructions": instructions}
+
+
+def phase_ext_symbol(device):
+    """The sweep reading ext from the __constant__ symbol against the
+    by-value sweep, full and early-exit, at the slice edges. Returns the
+    mismatches."""
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+    from mpi_blockchain_tpu_torch.ops.sha256_sched import extend_midstate
+
+    fresh = sha256_cuda.new_result(device)
+    cases = slice_edge_cases(np.random.default_rng(20261017),
+                             sha256_cuda.SLICE_NONCES)
+    mismatches = 0
+    for hdr, d, base, count in cases:
+        ext = extend_midstate(*core.header_midstate(hdr))
+        for early_exit in (False, True):
+            got = []
+            for e in (ext, torch.from_numpy(ext).to(device)):
+                out = fresh.clone()
+                sha256_cuda.launch(e, base, count, d, out,
+                                   early_exit=early_exit)
+                got.append(sha256_cuda.read_result(out))
+            if got[0] != got[1]:
+                mismatches += 1
+                log(f"MISMATCH ext symbol dbits={d} base={base:#x} "
+                    f"count={count} early_exit={early_exit}: {got}")
+    log(f"phase 5 constant-ext sweep vs by-value sweep at the slice "
+        f"edges: {2 * len(cases)} comparisons, mismatches {mismatches}")
+    check(mismatches == 0, f"{mismatches} constant-ext/by-value mismatches")
+    return mismatches
+
+
+def count_syncs(caught) -> int:
+    """Warnings of PyTorch's sync debug mode ("called a synchronizing CUDA
+    operation") among ``caught``; its first switch to "warn" also warns
+    that the mode is a prototype, which does not count."""
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def sync_detector_works(device) -> bool:
+    """Whether sync debug mode flags a known synchronizing call here."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.ones(1, device=device).item()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return count_syncs(caught) > 0
+
+
+def phase_fused(device, miner_chain: dict) -> dict:
+    """Mines the FUSED_RUNS pins through FusedMiner: an untimed run (tip,
+    launches, host waits, hidden syncs flagged by PyTorch, wall) and a run
+    whose sweeps are bracketed by CUDA events (kernel share). Returns the
+    numbers by (dbits, blocks)."""
+    import torch
+
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.fused import FusedMiner
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    check(sync_detector_works(device),
+          "sync debug mode did not flag .item() on the card")
+    results = {}
+    for (d, blocks, pow2), k in FUSED_RUNS.items():
+        cfg = MinerConfig(difficulty_bits=d, n_blocks=blocks,
+                          batch_pow2=pow2, backend="cuda", kernel="cuda",
+                          device="cuda")
+        pinned = PINNED_TIPS[(d, blocks, pow2)]
+        calls = -(-blocks // k)
+        row = {}
+        for timed in (False, True):
+            fm = FusedMiner(cfg, blocks_per_call=k)
+            fm.warmup()
+            events = []
+            mine_k = sha256_block.mine_k
+
+            def timed_mine_k(prev, data, *args, **kwargs):
+                evs = [torch.cuda.Event(enable_timing=True)
+                       for _ in range(2 * data.shape[0])]
+                for ev in evs:      # creates each event before the call
+                    ev.record()
+                events.extend(zip(evs[::2], evs[1::2]))
+                return mine_k(prev, data, *args, sweep_events=evs, **kwargs)
+
+            torch.cuda.synchronize()
+            if timed:
+                sha256_block.mine_k = timed_mine_k
+            sha256_cuda.launches = sha256_block.step_launches = 0
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        t0 = time.perf_counter()
+                        fm.mine_chain()
+                        wall = time.perf_counter() - t0
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+            finally:
+                sha256_block.mine_k = mine_k
+            sweeps, steps = sha256_cuda.launches, sha256_block.step_launches
+            torch.cuda.synchronize()
+            syncs = count_syncs(caught)
+            tip = fm.node.tip_hash.hex()
+            check(tip == pinned, f"fused d{d}/n{blocks} tip {tip} != "
+                  f"pinned {pinned}")
+            check(sweeps == blocks and steps == blocks + calls,
+                  f"fused d{d}/n{blocks}: {sweeps} sweeps and {steps} "
+                  f"steps, not {blocks} and {blocks + calls}")
+            check(fm.host_waits == calls, f"fused d{d}/n{blocks}: "
+                  f"{fm.host_waits} host waits for {calls} calls")
+            check(syncs == 0, f"fused d{d}/n{blocks}: PyTorch flagged "
+                  f"{syncs} synchronizing operations")
+            if timed:
+                kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+                row.update(timed_wall_s=wall, kernel_s=kernel_s,
+                           kernel_share=kernel_s / wall)
+            else:
+                row.update(wall_s=wall, sweeps=sweeps, steps=steps,
+                           host_waits=fm.host_waits, calls=calls,
+                           hidden_syncs=syncs)
+        results[(d, blocks)] = row
+        beside = ""
+        if (d, blocks) == (24, 1000):
+            beside = (f" (pipelined Miner, phase 3: "
+                      f"{miner_chain['wall_s']:.6f} s, kernel share "
+                      f"{miner_chain['kernel_s'] / miner_chain['wall_s']:.4f})")
+        log(f"phase 5 fused d{d}/n{blocks}/b{pow2} at {k} blocks a call: tip "
+            f"{tip} matches; wall {row['wall_s']:.6f} s{beside}; "
+            f"{row['sweeps']} sweeps, {row['steps']} steps, "
+            f"{row['host_waits']} host waits for {calls} calls, "
+            f"{row['hidden_syncs']} hidden syncs; timed run: wall {row['timed_wall_s']:.6f} s, sweeps "
+            f"{row['kernel_s']:.6f} s ({row['kernel_share']:.4f} of wall)")
+    return results
 
 
 def main() -> int:
@@ -543,22 +838,37 @@ def main() -> int:
         phase_backend(rng, device)
         chain = phase_tips(device)
         timing = phase_timing(rng, device)
+        step = phase_step(rng, device, timing["sm_clock_mhz"])
+        symbol_mismatches = phase_ext_symbol(device)
+        fused = phase_fused(device, chain)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    f24, f16 = fused[(24, 1000)], fused[(16, 30)]
     log(f"card: {card}")
     log(json.dumps({"kernels": [{
         "name": "sha256d_sweep", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": chain["launches"],
+        "replaces": REPLACES, "launches": f24["sweeps"],
+        "launches_miner_d24_n1000": chain["launches"],
         "searches": chain["searches"], "mismatches": mismatches,
+        "ext_symbol_mismatches": symbol_mismatches,
         "max_abs_err": max_err, "bound_by": "operations", "library_ms": None,
         **timing,
         "d24_n1000_wall_s": chain["wall_s"],
         "d24_n1000_hashes_per_s": chain["hashes_per_s"],
         "d24_n1000_kernel_s": chain["kernel_s"],
         "d24_n1000_kernel_share": chain["kernel_s"] / chain["wall_s"],
-        "d24_n1000_least_nonces": chain["least_nonces"]}]}))
+        "d24_n1000_least_nonces": chain["least_nonces"],
+        "fused_d24_n1000": f24, "fused_d16_n30": f16}, {
+        "name": "sha256d_block_step", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
+        "launches": f24["steps"], "mismatches": step["mismatches"],
+        "max_abs_err": step["max_abs_err"], "ms": step["ms"],
+        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "dependent_ops": step["dependent_ops"],
+        "instructions": step["instructions"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

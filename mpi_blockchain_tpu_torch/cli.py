@@ -3,6 +3,8 @@
     python -m mpi_blockchain_tpu_torch mine --difficulty 20 --blocks 10 \\
         --batch-pow2 20 --out chain.bin
     python -m mpi_blockchain_tpu_torch mine --device cpu --difficulty 12
+    python -m mpi_blockchain_tpu_torch mine --fused --blocks-per-call 100 \
+        --difficulty 24 --blocks 1000 --batch-pow2 24
     python -m mpi_blockchain_tpu_torch verify --chain chain.bin --difficulty 20
     python -m mpi_blockchain_tpu_torch info
 
@@ -11,6 +13,9 @@ Flags keep the reference CLI's names. ``mine`` runs on the card unless
 with no card it fails with a clean error instead of running elsewhere.
 ``mine --out`` writes the C++ node's ``save()`` bytes, the same format the
 reference writes, so the two packages' chain files compare with ``cmp``.
+``mine --fused`` mines ``--blocks-per-call`` blocks per host call with the
+fused k-block miner (``models/fused.py``); as in the reference, its
+summary has no ``hashes_tried``.
 ``verify`` reads raw chain files (sealed checkpoints come with a later
 slice of the port).
 """
@@ -47,13 +52,17 @@ def _config_from(args) -> MinerConfig:
 
 
 def cmd_mine(args) -> int:
+    from .models.fused import FusedMiner
     from .models.miner import Miner
 
     cfg = _config_from(args)
     if args.verbose:
         logging.basicConfig(level=logging.DEBUG, stream=sys.stderr,
                             format="%(message)s")
-    miner = Miner(cfg)
+    if args.fused:
+        miner = FusedMiner(cfg, blocks_per_call=args.blocks_per_call)
+    else:
+        miner = Miner(cfg)
     t0 = time.perf_counter()
     miner.mine_chain(cfg.n_blocks)
     wall = time.perf_counter() - t0
@@ -66,11 +75,17 @@ def cmd_mine(args) -> int:
         "height": miner.node.height,
         "tip_hash": miner.node.tip_hash.hex(),
         "wall_s": round(wall, 3),
-        "hashes_tried": miner.total_hashes(),
-        "hashes_per_sec": round(miner.hashes_per_sec()),
-        "backend": miner.backend.name,
-        "kernel": getattr(miner.backend, "effective_kernel", None),
+        "fused": args.fused,
     }
+    if args.fused:
+        summary.update(kernel=miner.effective_kernel,
+                       host_waits=miner.host_waits)
+    else:
+        summary.update(hashes_tried=miner.total_hashes(),
+                       hashes_per_sec=round(miner.hashes_per_sec()),
+                       backend=miner.backend.name,
+                       kernel=getattr(miner.backend, "effective_kernel",
+                                      None))
     print(json.dumps(summary, sort_keys=True))
     return 0
 
@@ -139,6 +154,10 @@ def main(argv: list[str] | None = None) -> int:
     p_mine.add_argument("--device", choices=DEVICES, default="cuda",
                         help="torch device of the cuda backend; the CPU "
                              "only when asked for")
+    p_mine.add_argument("--fused", action="store_true",
+                        help="mine with the fused k-block loop on the "
+                             "device (one host call per --blocks-per-call)")
+    p_mine.add_argument("--blocks-per-call", type=int, default=16)
     p_mine.add_argument("--out", help="write the chain to this file")
     p_mine.add_argument("--verbose", action="store_true",
                         help="per-block JSON lines on stderr")

@@ -7,6 +7,8 @@ with the C++ core:
   sha256_cuda  -- the hand-written CUDA kernel for Hopper (sm_90a)
 
 Both take the extended midstate from ``sha256_sched.extend_midstate``.
+``sha256_block`` holds the fused miner's per-block step (header template,
+winner digest) in plain PyTorch and as a CUDA kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +18,23 @@ import torch
 
 from ..config import ConfigError
 from .sha256_sched import EXT_WORDS, extend_midstate  # noqa: F401
+
+
+def resolve_kernel(kernel: str, device: torch.device) -> str:
+    """The kernel a run on ``device`` uses: "cuda" (the hand-written
+    kernels) or "torch" (their plain PyTorch versions). "auto" is "cuda" on
+    a CUDA device and "torch" on the CPU, which the caller reaches only by
+    asking for the CPU device; "cuda" on the CPU raises ConfigError."""
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ConfigError(f"unsupported device {device}")
+    if kernel == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if kernel == "cuda" and device.type != "cuda":
+        raise ConfigError(f"kernel='cuda' needs a CUDA device, got {device}")
+    if kernel not in ("cuda", "torch"):
+        raise ConfigError(f"unknown sweep kernel {kernel!r}")
+    return kernel
 
 
 def select_kernel(kernel: str, device: torch.device, difficulty_bits: int):
@@ -33,23 +52,16 @@ def select_kernel(kernel: str, device: torch.device, difficulty_bits: int):
     from . import sha256_cuda, sha256_torch
 
     device = torch.device(device)
-    if device.type not in ("cpu", "cuda"):
-        raise ConfigError(f"unsupported device {device}")
-    if kernel == "auto":
-        kernel = "cuda" if device.type == "cuda" else "torch"
+    kernel = resolve_kernel(kernel, device)
     if kernel == "cuda":
-        if device.type != "cuda":
-            raise ConfigError(
-                f"kernel='cuda' needs a CUDA device, got {device}")
         return functools.partial(sha256_cuda.sweep,
                                  difficulty_bits=difficulty_bits,
                                  device=device), "cuda"
-    if kernel == "torch":
-        def plain(ext, base, count, *, early_exit=False):
-            ext_t = torch.as_tensor(sha256_torch.ext_words(ext),
-                                    dtype=torch.int64, device=device)
-            return sha256_torch.sweep_core_ext(ext_t, base, count,
-                                               difficulty_bits,
-                                               early_exit=early_exit)
-        return plain, "torch"
-    raise ConfigError(f"unknown sweep kernel {kernel!r}")
+
+    def plain(ext, base, count, *, early_exit=False):
+        ext_t = torch.as_tensor(sha256_torch.ext_words(ext),
+                                dtype=torch.int64, device=device)
+        return sha256_torch.sweep_core_ext(ext_t, base, count,
+                                           difficulty_bits,
+                                           early_exit=early_exit)
+    return plain, "torch"

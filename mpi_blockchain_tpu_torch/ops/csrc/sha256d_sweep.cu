@@ -69,6 +69,32 @@
 // 8-byte aligned; the caller resets it to {0, 0xFFFFFFFF, 0, 0} before each
 // launch. 0xFFFFFFFF is a real nonce too: a caller tells "none" from "found
 // 0xFFFFFFFF" by count > 0.
+//
+// Extended midstate from device memory. The fused k-block miner builds each
+// block's header on the card from the previous block's digest, so the host
+// never sees the 20 ext words. An instantiation with kExtFromSymbol reads
+// them from the __constant__ array kExtSymbol instead of the arguments; a
+// stream-ordered device-to-device copy fills it from the step kernel's
+// output before each sweep. Both are constant-bank operands, so the loop's
+// registers do not change (ext loaded from global memory into registers
+// would spill or cost a resident block per SM). The symbol is one per
+// device: the caller lets one user at a time enqueue work that writes and
+// reads it (ops/sha256_cuda.py holds a lock and chains the users' streams).
+//
+// The fused step kernel (block_step_kernel below) replaces the jnp header
+// build and winner digest of the reference's fused miner
+// (mpi_blockchain_tpu/models/fused.py:89-114). One thread per block: it
+// finalizes the block just swept (its lowest winner from the result buffer,
+// and that header's double hash, the next prev_hash), builds the next
+// block's midstate, chunk-2 template and extended midstate, and resets the
+// result buffer, cursor included. What bounds it is latency: its three
+// compressions and the extension form one dependent chain, since each
+// compression's input is the one before's digest. One thread runs it: the
+// chain leaves little work to spread, and at full size the step is about
+// 1% of a block's time (PERF.md). sha256d_fused_enqueue puts a whole
+// k-block call on a stream (step, symbol copy and early-exit sweep over
+// [0, cap), k times, then a final step), so the host makes one call per k
+// blocks and reads nothing back between them.
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -81,6 +107,7 @@ constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kBlock = 256;
 constexpr unsigned long long kSlice = 32;  // nonces per slice, one a lane
 constexpr int kMaxDevices = 64;  // devices whose resident grid is cached
+constexpr int kExtWords = 20;
 
 __constant__ uint32_t kK[64] = {
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
@@ -106,8 +133,11 @@ constexpr int kExtE2 = 11, kExtE1 = 12, kExtE0 = 13;
 constexpr int kExtRcA = 14, kExtRcE = 15;
 constexpr int kExtW16 = 16, kExtW17 = 17, kExtRc18 = 18, kExtRc19 = 19;
 
+// The extended midstate of the block the fused loop is mining (see above).
+__constant__ uint32_t kExtSymbol[kExtWords];
+
 struct SweepArgs {
-  uint32_t ext[20];
+  uint32_t ext[kExtWords];       // unused by the kExtFromSymbol instantiation
   unsigned long long base;   // first nonce
   unsigned long long count;  // nonces to sweep; base + count <= 2^32
   uint32_t h0_limit;         // class <32: qualifies when h0 < h0_limit
@@ -185,10 +215,11 @@ __device__ __forceinline__ void rounds(uint32_t (&s)[8],
 }
 
 // Digest words h0, h1 of sha256d(header with this nonce).
+template <bool kExtFromSymbol>
 __device__ __forceinline__ void sha256d_h01(const SweepArgs& args,
                                             uint32_t nonce, uint32_t& h0,
                                             uint32_t& h1) {
-  const uint32_t* ext = args.ext;
+  const uint32_t* ext = kExtFromSymbol ? kExtSymbol : args.ext;
   // The header stores the nonce little-endian; SHA reads big-endian words.
   const uint32_t w3 = __byte_perm(nonce, 0, 0x0123);
 
@@ -236,8 +267,8 @@ __device__ __forceinline__ bool qualifies(uint32_t h0, uint32_t h1,
 // One trip of the loop takes a slice from the cursor and hashes one nonce
 // per lane. kCountHashed is a measuring build: each warp also adds the
 // nonces of each slice it takes to *hashed, which shows how far early exit
-// overshoots the winner.
-template <int kMode, bool kCountHashed>
+// overshoots the winner. kExtFromSymbol reads ext from kExtSymbol.
+template <int kMode, bool kCountHashed, bool kExtFromSymbol>
 __global__ void __launch_bounds__(kBlock)
     sha256d_sweep_kernel(const SweepArgs args, uint32_t* __restrict__ out,
                          unsigned long long* __restrict__ hashed) {
@@ -269,7 +300,7 @@ __global__ void __launch_bounds__(kBlock)
     const unsigned long long i = first + lane;
     const uint32_t nonce = static_cast<uint32_t>(args.base + i);
     uint32_t h0, h1;
-    sha256d_h01(args, nonce, h0, h1);
+    sha256d_h01<kExtFromSymbol>(args, nonce, h0, h1);
     const bool hit = i < args.count && qualifies<kMode>(h0, h1, args);
     const unsigned hits = __ballot_sync(kFullMask, hit);
     if (hits) {
@@ -286,7 +317,7 @@ __global__ void __launch_bounds__(kBlock)
 // Blocks of one instantiation that the current device holds at once (SMs
 // times resident blocks per SM). Queried once per device and kept, so a
 // launch costs no attribute or occupancy query.
-template <int kMode, bool kCountHashed>
+template <int kMode, bool kCountHashed, bool kExtFromSymbol>
 cudaError_t resident_blocks(unsigned long long* blocks) {
   static std::atomic<unsigned long long> cache[kMaxDevices];
   int device = 0;
@@ -299,38 +330,235 @@ cudaError_t resident_blocks(unsigned long long* blocks) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sha256d_sweep_kernel<kMode, kCountHashed>, kBlock, 0);
+        &per_sm, sha256d_sweep_kernel<kMode, kCountHashed, kExtFromSymbol>,
+        kBlock, 0);
   if (err != cudaSuccess) return err;
   *blocks = static_cast<unsigned long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (cached) cache[device].store(*blocks, std::memory_order_relaxed);
   return cudaSuccess;
 }
 
-template <int kMode, bool kCountHashed>
+template <int kMode, bool kCountHashed, bool kExtFromSymbol>
 int launch(const SweepArgs& args, uint32_t* out, unsigned long long* hashed,
            cudaStream_t stream) {
   unsigned long long resident = 0;
-  const cudaError_t err = resident_blocks<kMode, kCountHashed>(&resident);
+  const cudaError_t err =
+      resident_blocks<kMode, kCountHashed, kExtFromSymbol>(&resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // A warp needs at least one slice; more blocks would find the queue empty.
   const unsigned long long slices = (args.count + kSlice - 1) / kSlice;
   const unsigned long long needed = (slices + kBlock / 32 - 1) / (kBlock / 32);
   const unsigned grid =
       static_cast<unsigned>(needed < resident ? needed : resident);
-  sha256d_sweep_kernel<kMode, kCountHashed>
+  sha256d_sweep_kernel<kMode, kCountHashed, kExtFromSymbol>
       <<<grid, kBlock, 0, stream>>>(args, out, hashed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kCountHashed>
+template <bool kCountHashed, bool kExt>
 int launch_mode(int difficulty_bits, const SweepArgs& args, uint32_t* out,
                 unsigned long long* hashed, cudaStream_t stream) {
   const int d = difficulty_bits;
-  if (d <= 0) return launch<kAll, kCountHashed>(args, out, hashed, stream);
-  if (d < 32) return launch<kBelow32, kCountHashed>(args, out, hashed, stream);
-  if (d == 32) return launch<kEq32, kCountHashed>(args, out, hashed, stream);
-  if (d < 64) return launch<kBelow64, kCountHashed>(args, out, hashed, stream);
-  return launch<kEq64, kCountHashed>(args, out, hashed, stream);
+  if (d <= 0)
+    return launch<kAll, kCountHashed, kExt>(args, out, hashed, stream);
+  if (d < 32)
+    return launch<kBelow32, kCountHashed, kExt>(args, out, hashed, stream);
+  if (d == 32)
+    return launch<kEq32, kCountHashed, kExt>(args, out, hashed, stream);
+  if (d < 64)
+    return launch<kBelow64, kCountHashed, kExt>(args, out, hashed, stream);
+  return launch<kEq64, kCountHashed, kExt>(args, out, hashed, stream);
+}
+
+// Registers a thread of an instantiation uses, and the blocks an SM holds at
+// once; querying them also caches the instantiation's resident grid.
+template <int kMode, bool kExt>
+cudaError_t occupancy(int* registers, int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, sha256d_sweep_kernel<kMode, false, kExt>);
+  if (err != cudaSuccess) return err;
+  *registers = attr.numRegs;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, sha256d_sweep_kernel<kMode, false, kExt>, kBlock, 0);
+  if (err != cudaSuccess) return err;
+  unsigned long long resident = 0;
+  return resident_blocks<kMode, false, kExt>(&resident);
+}
+
+template <bool kExt>
+cudaError_t occupancy_mode(int d, int* registers, int* blocks_per_sm) {
+  return d <= 0    ? occupancy<kAll, kExt>(registers, blocks_per_sm)
+         : d < 32  ? occupancy<kBelow32, kExt>(registers, blocks_per_sm)
+         : d == 32 ? occupancy<kEq32, kExt>(registers, blocks_per_sm)
+         : d < 64  ? occupancy<kBelow64, kExt>(registers, blocks_per_sm)
+                   : occupancy<kEq64, kExt>(registers, blocks_per_sm);
+}
+
+// The sweep's arguments for [base, base + count) at a difficulty; ext may
+// be null (the kExtFromSymbol instantiation reads kExtSymbol).
+SweepArgs sweep_args(const uint32_t* ext, unsigned long long base,
+                     unsigned long long count, int difficulty_bits,
+                     int early_exit) {
+  SweepArgs args;
+  if (ext != nullptr)
+    std::memcpy(args.ext, ext, sizeof(args.ext));
+  else
+    std::memset(args.ext, 0, sizeof(args.ext));
+  args.base = base;
+  args.count = count;
+  args.one = 1;
+  args.early_exit = early_exit;
+  const int d = difficulty_bits;
+  args.h0_limit = (d > 0 && d < 32) ? (1u << (32 - d)) : 0u;
+  args.h1_limit = (d > 32 && d < 64) ? (1u << (64 - d)) : 0u;
+  return args;
+}
+
+bool valid_range(unsigned long long base, unsigned long long count,
+                 int difficulty_bits, const void* out) {
+  return count != 0 && base + count <= (1ull << 32) && difficulty_bits <= 64 &&
+         reinterpret_cast<uintptr_t>(out) % 8 == 0;
+}
+
+// ---- the fused miner's per-block step --------------------------------------
+
+constexpr uint32_t kVersionWord = 0x01000000u;  // bswap32(version 1)
+// The step's device scratch, uint32 words: the sweep's result buffer (at
+// word 0, so 8-byte aligned), the block's extended midstate, its midstate
+// and its chunk-2 template.
+constexpr int kScratchResult = 0, kScratchExt = 4, kScratchMidstate = 24,
+              kScratchTail = 32;
+
+struct StepArgs {
+  const uint32_t* prev;  // the previous digest, when no block is finalized
+  const uint32_t* data;  // data-hash words of the block to build, or null
+  uint32_t* scratch;     // result(4) | ext(20) | midstate(8) | tail(16)
+  uint32_t* nonce_out;   // finalize: the swept block's nonce goes here
+  uint32_t* tip_out;     // when no block is built: the digest goes here
+  uint32_t height;       // timestamp of the block built
+  uint32_t bits;         // difficulty bits of the block built
+};
+
+// state <- compress(state, w[0..15]), the feed-forward included; w is the
+// message schedule's storage.
+__device__ __forceinline__ void compress(uint32_t (&s)[8],
+                                         uint32_t (&w)[64]) {
+  const uint32_t in[8] = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
+  expand<16>(w, 1u);
+  rounds<0>(s, w, 1u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] += in[i];
+}
+
+// The extended midstate of a template (ops/sha256_sched.py): rounds 0..2
+// of the chunk-2 compression, round 3 folded onto the nonce word, and the
+// nonce-invariant schedule prefix.
+__device__ __forceinline__ void extend_midstate(const uint32_t (&ms)[8],
+                                                const uint32_t (&t)[16],
+                                                uint32_t (&x)[kExtWords]) {
+  uint32_t a = ms[0], b = ms[1], c = ms[2], d = ms[3];
+  uint32_t e = ms[4], f = ms[5], g = ms[6], h = ms[7];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const uint32_t t1 = h + big_sigma1(e) + ch(e, f, g) + kK[r] + t[r];
+    const uint32_t t2 = big_sigma0(a) + maj(a, b, c);
+    h = g; g = f; f = e; e = d + t1;
+    d = c; c = b; b = a; a = t1 + t2;
+  }
+  const uint32_t t1c = h + big_sigma1(e) + ch(e, f, g) + kK[3];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = ms[i];
+  x[kExtA2] = a; x[kExtA1] = b; x[kExtA0] = c;
+  x[kExtE2] = e; x[kExtE1] = f; x[kExtE0] = g;
+  x[kExtRcA] = t1c + big_sigma0(a) + maj(a, b, c);
+  x[kExtRcE] = d + t1c;
+  x[kExtW16] = t[0] + small_sigma0(t[1]);
+  x[kExtW17] = t[1] + small_sigma0(t[2]) + small_sigma1(t[15]);
+  x[kExtRc18] = t[2] + small_sigma1(x[kExtW16]);
+  x[kExtRc19] = small_sigma0(t[4]) + small_sigma1(x[kExtW17]);
+}
+
+__global__ void block_step_kernel(const StepArgs a) {
+  uint32_t* const result = a.scratch + kScratchResult;
+  uint32_t* const ext = a.scratch + kScratchExt;
+  uint32_t* const midstate = a.scratch + kScratchMidstate;
+  uint32_t* const tail = a.scratch + kScratchTail;
+  uint32_t prev[8];
+  if (a.nonce_out != nullptr) {
+    // Finalize the block just swept: its lowest qualifying nonce
+    // (0xFFFFFFFF when there is none, which the host's validation then
+    // rejects) and the double hash of its header, the next prev_hash.
+    const uint32_t nonce = result[1];
+    *a.nonce_out = nonce;
+    uint32_t w[64], s[8];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = tail[i];
+    w[3] = __byte_perm(nonce, 0, 0x0123);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = midstate[i];
+    compress(s, w);
+    // Hash 2 over the 32-byte digest: its words are the message directly.
+    uint32_t w2[64];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w2[i] = s[i];
+    w2[8] = 0x80000000u;
+#pragma unroll
+    for (int i = 9; i < 15; ++i) w2[i] = 0;
+    w2[15] = 32 * 8;
+    uint32_t s2[8] = {kIV0, kIV1, kIV2, kIV3, kIV4, kIV5, kIV6, kIV7};
+    compress(s2, w2);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) prev[i] = s2[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) prev[i] = a.prev[i];
+  }
+  if (a.data == nullptr) {
+    if (a.tip_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a.tip_out[i] = prev[i];
+    }
+    return;
+  }
+  // Header chunk 1, big-endian words: version | prev_hash | data_hash[0:7].
+  uint32_t w[64];
+  w[0] = kVersionWord;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[1 + i] = prev[i];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) w[9 + i] = a.data[i];
+  uint32_t ms[8] = {kIV0, kIV1, kIV2, kIV3, kIV4, kIV5, kIV6, kIV7};
+  compress(ms, w);
+  // Chunk-2 template: data_hash[7] | timestamp | bits | nonce slot | padding
+  // (the header stores the little-endian fields; SHA reads big-endian).
+  uint32_t t[16] = {a.data[7], __byte_perm(a.height, 0, 0x0123),
+                    __byte_perm(a.bits, 0, 0x0123), 0, 0x80000000u};
+  t[15] = 80 * 8;
+  uint32_t x[kExtWords];
+  extend_midstate(ms, t, x);
+#pragma unroll
+  for (int i = 0; i < kExtWords; ++i) ext[i] = x[i];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) midstate[i] = ms[i];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) tail[i] = t[i];
+  result[0] = 0;
+  result[1] = 0xFFFFFFFFu;
+  result[2] = 0;
+  result[3] = 0;
+}
+
+int launch_step(const StepArgs& args, cudaStream_t stream) {
+  block_step_kernel<<<1, 1, 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Enqueues the copy of a device ext into kExtSymbol.
+int copy_ext_to_symbol(const uint32_t* ext, cudaStream_t stream) {
+  return static_cast<int>(
+      cudaMemcpyToSymbolAsync(kExtSymbol, ext, sizeof(uint32_t) * kExtWords,
+                              0, cudaMemcpyDeviceToDevice, stream));
 }
 
 }  // namespace
@@ -349,23 +577,106 @@ int sha256d_sweep_launch(const uint32_t* ext, unsigned long long base,
                          unsigned long long count, int difficulty_bits,
                          int early_exit, void* out,
                          void* hashed, void* stream) {
-  if (count == 0 || base + count > (1ull << 32) || difficulty_bits > 64 ||
-      reinterpret_cast<uintptr_t>(out) % 8 != 0)
+  if (!valid_range(base, count, difficulty_bits, out))
     return static_cast<int>(cudaErrorInvalidValue);
-  SweepArgs args;
-  std::memcpy(args.ext, ext, sizeof(args.ext));
-  args.base = base;
-  args.count = count;
-  args.one = 1;
-  args.early_exit = early_exit;
   const int d = difficulty_bits;
-  args.h0_limit = (d > 0 && d < 32) ? (1u << (32 - d)) : 0u;
-  args.h1_limit = (d > 32 && d < 64) ? (1u << (64 - d)) : 0u;
+  const SweepArgs args = sweep_args(ext, base, count, d, early_exit);
   uint32_t* o = static_cast<uint32_t*>(out);
   auto* n = static_cast<unsigned long long*>(hashed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return n ? launch_mode<true>(d, args, o, n, s)
-           : launch_mode<false>(d, args, o, n, s);
+  return n ? launch_mode<true, false>(d, args, o, n, s)
+           : launch_mode<false, false>(d, args, o, n, s);
+}
+
+// The same sweep with the 20 ext words in device memory: enqueues their
+// copy into kExtSymbol, then the kExtFromSymbol instantiation.
+int sha256d_sweep_launch_ext_symbol(const uint32_t* ext_device,
+                                    unsigned long long base,
+                                    unsigned long long count,
+                                    int difficulty_bits, int early_exit,
+                                    void* out, void* stream) {
+  if (!valid_range(base, count, difficulty_bits, out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = copy_ext_to_symbol(ext_device, s);
+  if (err != 0) return err;
+  const SweepArgs args =
+      sweep_args(nullptr, base, count, difficulty_bits, early_exit);
+  return launch_mode<false, true>(difficulty_bits, args,
+                                  static_cast<uint32_t*>(out), nullptr, s);
+}
+
+// Enqueues one fused step (StepArgs above; null pointers switch its parts
+// off). scratch must be 8-byte aligned.
+int sha256d_block_step_launch(const uint32_t* prev, const uint32_t* data,
+                              void* scratch, uint32_t* nonce_out,
+                              uint32_t* tip_out, unsigned int height,
+                              unsigned int bits, void* stream) {
+  if (reinterpret_cast<uintptr_t>(scratch) % 8 != 0 ||
+      (prev == nullptr && nonce_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StepArgs args{prev, data, static_cast<uint32_t*>(scratch),
+                      nonce_out, tip_out, height, bits};
+  return launch_step(args, static_cast<cudaStream_t>(stream));
+}
+
+// Enqueues a whole k-block call of the fused miner on `stream`: for each
+// block j, the step (finalize block j - 1, build block j at height
+// start_height + j + 1 from data[8 j .. 8 j + 8)), the copy of its ext into
+// kExtSymbol and an early-exit sweep of [0, cap); then a final step that
+// finalizes block k - 1 into tip. nonces gets the k winners (0xFFFFFFFF where
+// [0, cap) holds none). prev, data, nonces and tip are device uint32 arrays
+// of 8, 8 k, k and 8 words; scratch is a device buffer of 48 words, 8-byte
+// aligned. A non-null sweep_events holds 2 k cudaEvent_t, recorded before
+// and after each sweep. Returns the first CUDA error (0 on success); nothing
+// synchronizes.
+int sha256d_fused_enqueue(const uint32_t* prev, const uint32_t* data, int k,
+                          unsigned int start_height, int difficulty_bits,
+                          unsigned long long cap, void* scratch,
+                          uint32_t* nonces, uint32_t* tip,
+                          void* const* sweep_events, void* stream) {
+  if (k < 1 || difficulty_bits < 0 ||
+      !valid_range(0, cap, difficulty_bits, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* const sc = static_cast<uint32_t*>(scratch);
+  const SweepArgs args = sweep_args(nullptr, 0, cap, difficulty_bits, 1);
+  for (int j = 0; j <= k; ++j) {
+    const StepArgs step{prev, j < k ? data + 8 * j : nullptr, sc,
+                        j > 0 ? nonces + j - 1 : nullptr,
+                        j == k ? tip : nullptr,
+                        start_height + static_cast<unsigned int>(j) + 1u,
+                        static_cast<uint32_t>(difficulty_bits)};
+    int err = launch_step(step, s);
+    if (err != 0 || j == k) return err;
+    err = copy_ext_to_symbol(sc + kScratchExt, s);
+    if (err != 0) return err;
+    if (sweep_events != nullptr) {
+      err = static_cast<int>(cudaEventRecord(
+          static_cast<cudaEvent_t>(sweep_events[2 * j]), s));
+      if (err != 0) return err;
+    }
+    err = launch_mode<false, true>(difficulty_bits, args, sc + kScratchResult,
+                                   nullptr, s);
+    if (err != 0) return err;
+    if (sweep_events != nullptr) {
+      err = static_cast<int>(cudaEventRecord(
+          static_cast<cudaEvent_t>(sweep_events[2 * j + 1]), s));
+      if (err != 0) return err;
+    }
+  }
+  return 0;
+}
+
+// Registers a thread and blocks per SM of the production sweep at
+// difficulty_bits, by-value ext (ext_from_symbol 0) or kExtSymbol (1), on
+// the current device. Returns the CUDA error code (0 on success).
+int sha256d_sweep_occupancy(int difficulty_bits, int ext_from_symbol,
+                            int* registers, int* blocks_per_sm) {
+  return static_cast<int>(
+      ext_from_symbol
+          ? occupancy_mode<true>(difficulty_bits, registers, blocks_per_sm)
+          : occupancy_mode<false>(difficulty_bits, registers, blocks_per_sm));
 }
 
 // Blocks a production launch at `difficulty_bits` runs on the current
@@ -374,11 +685,11 @@ long long sha256d_sweep_resident_blocks(int difficulty_bits) {
   const int d = difficulty_bits;
   unsigned long long blocks = 0;
   const cudaError_t err =
-      d <= 0    ? resident_blocks<kAll, false>(&blocks)
-      : d < 32  ? resident_blocks<kBelow32, false>(&blocks)
-      : d == 32 ? resident_blocks<kEq32, false>(&blocks)
-      : d < 64  ? resident_blocks<kBelow64, false>(&blocks)
-                : resident_blocks<kEq64, false>(&blocks);
+      d <= 0    ? resident_blocks<kAll, false, false>(&blocks)
+      : d < 32  ? resident_blocks<kBelow32, false, false>(&blocks)
+      : d == 32 ? resident_blocks<kEq32, false, false>(&blocks)
+      : d < 64  ? resident_blocks<kBelow64, false, false>(&blocks)
+                : resident_blocks<kEq64, false, false>(&blocks);
   return err == cudaSuccess ? static_cast<long long>(blocks)
                             : -static_cast<long long>(err);
 }

@@ -5,12 +5,16 @@ package's git-ignored ``build/`` directory at first use and bound with
 ctypes through its plain C interface. ``sweep`` is the entry point: on a
 CUDA device it launches the kernel or raises; only for the CPU device does
 it run the plain PyTorch version (``sha256_torch.sweep_core_ext``).
+``launch`` also takes the extended midstate as a CUDA tensor, for the
+instantiation that reads it from the library's ``__constant__`` symbol, as
+the fused miner's loop does (``ext_symbol_user``).
 ``bound_sm_clocks_per_nonce`` gives the kernel's bound from the
 function's work: the ALU-only instructions of the compiled loop
 (``loop_census``) and the adds of the source (``source_adds``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -76,6 +80,23 @@ def bind(library: pathlib.Path) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.sha256d_sweep_launch.restype = ctypes.c_int
+    lib.sha256d_sweep_launch_ext_symbol.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.sha256d_sweep_launch_ext_symbol.restype = ctypes.c_int
+    lib.sha256d_block_step_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+    lib.sha256d_block_step_launch.restype = ctypes.c_int
+    lib.sha256d_fused_enqueue.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+        ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.sha256d_fused_enqueue.restype = ctypes.c_int
+    lib.sha256d_sweep_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.sha256d_sweep_occupancy.restype = ctypes.c_int
     lib.sha256d_sweep_resident_blocks.argtypes = [ctypes.c_int]
     lib.sha256d_sweep_resident_blocks.restype = ctypes.c_longlong
     lib.sha256d_sweep_block_threads.restype = ctypes.c_int
@@ -89,7 +110,7 @@ def _lib() -> ctypes.CDLL:
     return bind(build())
 
 
-def _cuda_error(what: str, err: int) -> RuntimeError:
+def cuda_error(what: str, err: int) -> RuntimeError:
     return RuntimeError(f"{what} failed: CUDA error {err} "
                         f"({_lib().sha256d_sweep_error_string(err).decode()})")
 
@@ -117,19 +138,58 @@ def check_result_buffer(out: torch.Tensor) -> None:
                          f"{tuple(out.shape)} {out.dtype}")
 
 
-def launch(ext_host: np.ndarray, base: int, count: int,
+_ext_symbol_lock = threading.Lock()
+_ext_symbol_last: dict[torch.device, torch.cuda.Event] = {}
+
+
+@contextlib.contextmanager
+def ext_symbol_user(device: torch.device, stream: torch.cuda.Stream):
+    """Scope for enqueueing work that writes or reads the library's
+    ``__constant__`` ext symbol on ``device``, of which there is one per
+    device. The lock lets one caller at a time enqueue such work, and its
+    stream waits (on the device, without a host sync) for the previous
+    user's work, on whatever stream that ran: so one fused run at a time
+    uses the symbol, and runs on two streams take turns. The per-block path
+    (ext by value) does not touch it."""
+    with _ext_symbol_lock:
+        last = _ext_symbol_last.get(device)
+        if last is not None:
+            stream.wait_event(last)
+        yield
+        done = torch.cuda.Event()
+        done.record(stream)
+        _ext_symbol_last[device] = done
+
+
+def check_device_words(t: torch.Tensor, shape: tuple, device: torch.device,
+                        name: str) -> None:
+    """Raises ValueError unless ``t`` is a contiguous uint32 or int32 tensor
+    of ``shape`` on ``device`` (the kernels read its words as uint32)."""
+    if t.device != device or t.dtype not in (torch.uint32, torch.int32) \
+            or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {shape} uint32 "
+                         f"tensor on {device}, got {tuple(t.shape)} "
+                         f"{t.dtype} on {t.device}")
+
+
+def launch(ext, base: int, count: int,
            difficulty_bits: int, out: torch.Tensor, *,
            early_exit: bool = False,
            hashed: torch.Tensor | None = None) -> None:
     """Enqueues one sweep of [base, base + count) on the current stream of
     ``out``'s device, accumulating into ``out`` (see ``new_result``; the
-    caller resets it). ``ext_host`` is the (20,) uint32 extended midstate
-    in host memory; it travels by value in the kernel's arguments. Does not
-    synchronise.
+    caller resets it). Does not synchronise.
+
+    ``ext`` is the (20,) uint32 extended midstate. In host memory (numpy)
+    it travels by value in the kernel's arguments. A (20,) uint32 or int32
+    tensor on ``out``'s device is copied, on the stream, into the library's
+    ``__constant__`` symbol, and the instantiation that reads it there
+    runs (``ext_symbol_user``).
 
     ``hashed``, a (1,) int64 tensor on the same device, selects the
     measuring build of the kernel, which adds to it the number of nonces it
-    hashed (with ``early_exit``, how far the sweep ran past the winner)."""
+    hashed (with ``early_exit``, how far the sweep ran past the winner);
+    only with ``ext`` in host memory."""
     global launches
     if out.device.type != "cuda":
         raise ValueError("out must be a CUDA tensor")
@@ -139,9 +199,16 @@ def launch(ext_host: np.ndarray, base: int, count: int,
                                or hashed.shape != (1,)):
         raise ValueError("hashed must be a (1,) int64 tensor on out's "
                          "device")
-    ext = np.ascontiguousarray(ext_host, dtype=np.uint32)
-    if ext.shape != (20,):
-        raise ValueError(f"ext must have shape (20,), got {ext.shape}")
+    on_device = isinstance(ext, torch.Tensor)
+    if on_device:
+        check_device_words(ext, (sha256_sched.EXT_WORDS,), out.device,
+                            "ext")
+        if hashed is not None:
+            raise ValueError("the measuring build takes ext in host memory")
+    else:
+        ext = np.ascontiguousarray(ext, dtype=np.uint32)
+        if ext.shape != (sha256_sched.EXT_WORDS,):
+            raise ValueError(f"ext must have shape (20,), got {ext.shape}")
     sha256_torch.check_range(base, count)
     if count == 0:
         return
@@ -149,13 +216,20 @@ def launch(ext_host: np.ndarray, base: int, count: int,
         raise ConfigError(f"difficulty_bits {difficulty_bits} > 64 "
                           f"unsupported")
     with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _lib().sha256d_sweep_launch(
-            ext.ctypes.data, base, count, int(difficulty_bits),
-            int(early_exit), out.data_ptr(),
-            None if hashed is None else hashed.data_ptr(), stream)
+        stream = torch.cuda.current_stream(out.device)
+        if on_device:
+            with ext_symbol_user(out.device, stream):
+                err = _lib().sha256d_sweep_launch_ext_symbol(
+                    ext.data_ptr(), base, count, int(difficulty_bits),
+                    int(early_exit), out.data_ptr(), stream.cuda_stream)
+        else:
+            err = _lib().sha256d_sweep_launch(
+                ext.ctypes.data, base, count, int(difficulty_bits),
+                int(early_exit), out.data_ptr(),
+                None if hashed is None else hashed.data_ptr(),
+                stream.cuda_stream)
     if err != 0:
-        raise _cuda_error("sha256d_sweep launch", err)
+        raise cuda_error("sha256d_sweep launch", err)
     launches += 1
 
 
@@ -165,8 +239,24 @@ def resident_blocks(difficulty_bits: int, device: torch.device) -> int:
     with torch.cuda.device(device):
         blocks = _lib().sha256d_sweep_resident_blocks(int(difficulty_bits))
     if blocks <= 0:
-        raise _cuda_error("the occupancy query", -blocks)
+        raise cuda_error("the occupancy query", -blocks)
     return blocks
+
+
+def occupancy(difficulty_bits: int, device: torch.device,
+              ext_from_symbol: bool = False) -> tuple[int, int]:
+    """(registers a thread, blocks an SM holds at once) of the production
+    sweep serving ``difficulty_bits`` on ``device``, with ext by value or
+    from the ``__constant__`` symbol. Also caches that instantiation's
+    resident grid, so its first launch makes no occupancy query."""
+    regs, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _lib().sha256d_sweep_occupancy(
+            int(difficulty_bits), int(ext_from_symbol), ctypes.byref(regs),
+            ctypes.byref(per_sm))
+    if err != 0:
+        raise cuda_error("the occupancy query", err)
+    return regs.value, per_sm.value
 
 
 def resident_warps(difficulty_bits: int, device: torch.device) -> int:
@@ -264,10 +354,11 @@ def difficulty_class(difficulty_bits: int) -> int:
 
 
 def kernel_symbol(difficulty_bits: int, count_hashed: bool = False) -> str:
-    """The mangled-name stem of ``sha256d_sweep_kernel<kMode, kCountHashed>``
-    serving ``difficulty_bits``, built from the template's parameters."""
+    """The mangled-name stem of ``sha256d_sweep_kernel<kMode, kCountHashed,
+    false>`` (ext by value) serving ``difficulty_bits``, built from the
+    template's parameters."""
     return (f"sha256d_sweep_kernelILi{difficulty_class(difficulty_bits)}"
-            f"ELb{int(count_hashed)}E")
+            f"ELb{int(count_hashed)}ELb0E")
 
 
 def disassemble(library: pathlib.Path | None = None) -> str:
@@ -280,6 +371,33 @@ def disassemble(library: pathlib.Path | None = None) -> str:
                           capture_output=True, text=True, check=True).stdout
 
 
+#: The mangled-name stem of the fused miner's step kernel.
+STEP_KERNEL_SYMBOL = "block_step_kernel"
+
+
+def _instructions(sass: str, name: str) -> list[tuple[int, str, str]]:
+    """(address, opcode, operands) of the first function of ``cuobjdump
+    -sass`` text whose mangled name contains ``name``."""
+    for part in sass.split("Function : ")[1:]:
+        if name in part.splitlines()[0]:
+            return [(int(addr, 16), op, operands)
+                    for addr, op, operands in _SASS_LINE.findall(part)]
+    raise ValueError(f"{name} is not in the disassembly")
+
+
+def _by_opcode(ops) -> dict[str, int]:
+    counts: dict[str, int] = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def function_census(sass: str, name: str) -> dict[str, int]:
+    """Instructions by opcode in the whole of the function named ``name``
+    (a stem of its mangled name), from ``cuobjdump -sass`` text."""
+    return _by_opcode(op for _, op, _ in _instructions(sass, name))
+
+
 def loop_census(sass: str, difficulty_bits: int) -> dict[str, int]:
     """Instructions by opcode in the main loop of the production kernel
     serving ``difficulty_bits``, from ``cuobjdump -sass`` text. The loop
@@ -287,25 +405,16 @@ def loop_census(sass: str, difficulty_bits: int) -> dict[str, int]:
     ``NONCES_PER_TRIP`` nonces per thread, and takes one slice from the
     work queue."""
     name = kernel_symbol(difficulty_bits)
-    for part in sass.split("Function : ")[1:]:
-        if name not in part.splitlines()[0]:
-            continue
-        insts = [(int(addr, 16), op, operands)
-                 for addr, op, operands in _SASS_LINE.findall(part)]
-        back = []
-        for addr, op, operands in insts:
-            target = re.findall(r"0x([0-9a-f]+)", operands)
-            if op == "BRA" and target and int(target[-1], 16) < addr:
-                back.append((int(target[-1], 16), addr))
-        if not back:
-            raise ValueError(f"no loop found in {name}")
-        lo, hi = max(back, key=lambda span: span[1] - span[0])
-        counts: dict[str, int] = {}
-        for addr, op, _ in insts:
-            if lo <= addr <= hi:
-                counts[op] = counts.get(op, 0) + 1
-        return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
-    raise ValueError(f"{name} is not in the disassembly")
+    insts = _instructions(sass, name)
+    back = []
+    for addr, op, operands in insts:
+        target = re.findall(r"0x([0-9a-f]+)", operands)
+        if op == "BRA" and target and int(target[-1], 16) < addr:
+            back.append((int(target[-1], 16), addr))
+    if not back:
+        raise ValueError(f"no loop found in {name}")
+    lo, hi = max(back, key=lambda span: span[1] - span[0])
+    return _by_opcode(op for addr, op, _ in insts if lo <= addr <= hi)
 
 
 def pipe_counts(census: dict[str, int]) -> tuple[int, int, int]:

@@ -151,13 +151,17 @@ def test_select_kernel_policy():
         select_kernel("pallas", torch.device("cpu"), 8)
 
 
-# cuobjdump -sass shape: two instantiations, each a prologue, a loop closed
-# by a backward branch, and the self-branch that follows EXIT.
+# cuobjdump -sass shape: instantiations, each a prologue, a loop closed by
+# a backward branch, and the self-branch that follows EXIT; the one reading
+# ext from the constant symbol comes first and must not be taken.
 _SASS = """
-        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb1EEEvNS_9SweepArgsEPjPy
+        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0ELb1EEEvNS_9SweepArgsEPjPy
+        /*0000*/                   LOP3.LUT R2, RZ, 0x3, R0, 0x96, !PT ;
+        /*0010*/                   BRA 0x0 ;
+        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb1ELb0EEEvNS_9SweepArgsEPjPy
         /*0000*/                   SHF.R.U32.HI R2, RZ, 0x3, R0 ;
         /*0010*/                   BRA 0x0 ;
-        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0EEEvNS_9SweepArgsEPjPy
+        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0ELb0EEEvNS_9SweepArgsEPjPy
         .headerflags    @"EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
         /*0000*/                   LDC R1, c[0x0][0x28] ;
                                                           /* 0x000fe40000000800 */
@@ -222,7 +226,7 @@ def test_result_buffer_layout_and_its_validation():
 # shuffles, the early-exit test) inside the loop, closed by a backward
 # branch after the vote; here with two nonces hashed per trip.
 _SASS_QUEUE = """
-        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0EEEvNS_9SweepArgsEPjPy
+        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0ELb0EEEvNS_9SweepArgsEPjPy
         /*0000*/                   LDC R1, c[0x0][0x28] ;
         /*0010*/                   ISETP.NE.AND P0, PT, R30, c[0x0][0x25c], PT ;
         /*0020*/               @P0 BRA 0x70 ;
@@ -244,9 +248,9 @@ _SASS_QUEUE = """
 
 
 def test_census_names_the_template_and_divides_by_the_nonces_per_trip():
-    assert sha256_cuda.kernel_symbol(24) == "sha256d_sweep_kernelILi1ELb0E"
+    assert sha256_cuda.kernel_symbol(24) == "sha256d_sweep_kernelILi1ELb0ELb0E"
     assert sha256_cuda.kernel_symbol(40, count_hashed=True) \
-        == "sha256d_sweep_kernelILi3ELb1E"
+        == "sha256d_sweep_kernelILi3ELb1ELb0E"
     census = sha256_cuda.loop_census(_SASS_QUEUE, 24)
     assert census == {"ISETP": 2, "BRA": 2, "SHF": 2, "LOP3": 2, "IMAD": 2,
                       "ATOMG": 1, "SHFL": 1, "EXIT": 1, "VOTE": 1}

@@ -32,18 +32,28 @@ then:
    ``__constant__`` symbol, with the registers and blocks per SM of both;
 5. drives the fused k-block miner (``mine --fused``): its step kernel
    against the plain step on the card, bit for bit, over seeded
-   prev/data/height and the sentinel nonce; the constant-ext sweep against
-   the by-value sweep at the slice edges; the step kernel's time; then the
-   pinned d16/n30 (16 blocks a call) and d24/n1000 (100 a call) through
+   prev/data/height and the sentinel nonce and over the edge cases
+   (``step_edge_cases``: prev words all-zero and all-ones, heights 0 and
+   0xFFFFFFFF, bits 0, 24 and 64, nonces 0 and 0xFFFFFFFF); whole k-block
+   calls (``mine_k``) at k 1, 2 and 6 and caps 2^12 and 2^32 against
+   ``mine_k_plain``; the constant-ext sweep against the by-value sweep at
+   the slice edges; the step kernel's time three ways (launches enqueued
+   back to back in one call, the body's SM clocks from the measuring
+   build's clock stamps, and a Python loop apart), with its compiled
+   instructions and ptxas's registers, stack and spills; then the pinned
+   d16/n30 (16 blocks a call) and d24/n1000 (100 a call) through
    ``FusedMiner``, their tips against the pins, with the sweep and step
    launches, the host waits per call and PyTorch's count of hidden syncs,
    the wall beside the pipelined ``Miner``'s of phase 3, and, in a second
-   run, the sweeps' share of the wall from CUDA events.
+   run with CUDA events around each sweep and after each step, the sweeps'
+   share of the wall, the per-block device gaps within a call
+   (``block_gaps``: median, 90th percentile, max), split into the step and
+   the symbol copy, and the rest of the wall.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line; with no CUDA device it fails at once. It takes about
-two minutes on one NVIDIA H100, the builds included.
+two and a half minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
@@ -75,6 +85,16 @@ FUSED_RUNS = {(16, 30, 20): 16, (24, 1000, 24): 100}
 STEP_CASES = 64
 STEP_TIMED_LAUNCHES = 1000
 M32 = 0xFFFFFFFF
+# Edge cases of the step kernel (``step_edge_cases``) and the k-block calls
+# held against the plain sequence.
+STEP_EDGE_PREVS = (0, M32)          # every word of prev
+STEP_EDGE_HEIGHTS = (0, M32)
+STEP_EDGE_BITS = (0, 24, 64)
+STEP_EDGE_NONCES = (0, M32)
+STEP_CALL_KS = (1, 2, 6)
+STEP_CALL_CAPS = (1 << 12, 1 << 32)
+# The fused events run's per-block gap figures, in the step's kernel row.
+GAP_KEYS = ("gap_ms", "gap_step_ms", "gap_copy_ms", "gaps_s", "rest_s")
 NONCE_SPACE = 1 << 32
 TIMED_NONCES = 1 << 24
 TIMED_DBITS = 24
@@ -548,31 +568,43 @@ def phase_timing(rng, device):
             "sms": sms, "sm_clock_mhz": clock_mhz}
 
 
-def phase_step(rng, device, clock_mhz: float):
-    """The fused step kernel against the plain step on the card, bit for
-    bit: for STEP_CASES seeded (prev, data, height, nonces) it builds a
-    block, finalizes it with the first nonce and builds the next, then
-    finalizes that into the tip, with the sentinel among the nonces; the
-    plain version computes all cases at once. Then times the kernel (a
-    finalize-and-build step, STEP_TIMED_LAUNCHES launches back to back)
-    and the plain step. Returns the numbers."""
+def step_edge_cases(rng) -> list[tuple]:
+    """(prev, data, heights, nonces, bits) groups of step cases at the
+    edges of its inputs, one group per difficulty in STEP_EDGE_BITS: every
+    prev word all-zero or all-ones, height 0 or 0xFFFFFFFF (whose next
+    block's height wraps to 0), and nonce 0 or 0xFFFFFFFF in both of a
+    case's finalizing steps; the data words are seeded."""
+    import numpy as np
+
+    rows = [(pv, h, nz) for pv in STEP_EDGE_PREVS for h in STEP_EDGE_HEIGHTS
+            for nz in STEP_EDGE_NONCES]
+    prev = np.array([[pv] * 8 for pv, _, _ in rows], dtype=np.uint32)
+    heights = np.array([h for _, h, _ in rows], dtype=np.int64)
+    nonces = np.array([[nz, M32 - nz] for _, _, nz in rows], dtype=np.uint32)
+    return [(prev, rng.integers(0, 1 << 32, (len(rows), 2, 8),
+                                dtype=np.uint32), heights, nonces, bits)
+            for bits in STEP_EDGE_BITS]
+
+
+def step_vs_plain(prev, data, heights, nonces, bits: int, device
+                  ) -> tuple[int, int]:
+    """The step kernel against the plain step on the card, bit for bit,
+    over n cases (numpy: prev (n, 8), data (n, 2, 8), heights (n,), nonces
+    (n, 2)) at ``bits``: each builds a block, finalizes it with its first
+    nonce and builds the next at height + 1, then finalizes that into the
+    tip with its second nonce; the plain version computes all cases at
+    once. Returns (cases that differ, max_abs_err)."""
     import numpy as np
     import torch
 
-    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+    from mpi_blockchain_tpu_torch.ops import sha256_block
     from mpi_blockchain_tpu_torch.ops.sha256_block import (
         block_template, winner_digest)
-
-    n, d = STEP_CASES, TIMED_DBITS
-    prev = rng.integers(0, 1 << 32, (n, 8), dtype=np.uint32)
-    data = rng.integers(0, 1 << 32, (n, 2, 8), dtype=np.uint32)
-    heights = rng.integers(0, 1 << 32, n)
-    nonces = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint32)
-    nonces[0, 0] = nonces[1, 1] = M32
 
     def card(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    n = len(prev)
     prev_t, data_t = card(prev), card(data)
     built, both = [], []
     nonce_out = torch.zeros((n, 2), dtype=torch.uint32, device=device)
@@ -581,11 +613,11 @@ def phase_step(rng, device, clock_mhz: float):
         h = int(heights[i])
         scratch = sha256_block.new_scratch(device)
         sha256_block.step(scratch, prev=prev_t[i], data=data_t[i, 0],
-                          height=h, difficulty_bits=d)
+                          height=h, difficulty_bits=bits)
         built.append(scratch.clone())
         scratch.view(torch.uint32)[1] = int(nonces[i, 0])
         sha256_block.step(scratch, data=data_t[i, 1], height=h + 1,
-                          difficulty_bits=d, nonce_out=nonce_out[i, :1])
+                          difficulty_bits=bits, nonce_out=nonce_out[i, :1])
         both.append(scratch.clone())
         scratch.view(torch.uint32)[1] = int(nonces[i, 1])
         sha256_block.step(scratch, nonce_out=nonce_out[i, 1:],
@@ -596,10 +628,10 @@ def phase_step(rng, device, clock_mhz: float):
     n_t = sha256_block.to_words(card(nonces))
     reset = torch.tensor([0, M32, 0, 0], dtype=torch.int64,
                          device=device).expand(n, 4)
-    ms, tail, ext = block_template(prev_t, data_t[:, 0], h_t, d)
+    ms, tail, ext = block_template(prev_t, data_t[:, 0], h_t, bits)
     want_built = torch.cat([reset, ext, ms, tail], dim=1)
     digest = winner_digest(ms, tail, n_t[:, 0])
-    ms2, tail2, ext2 = block_template(digest, data_t[:, 1], h_t + 1, d)
+    ms2, tail2, ext2 = block_template(digest, data_t[:, 1], h_t + 1, bits)
     want_both = torch.cat([reset, ext2, ms2, tail2], dim=1)
     want_tip = winner_digest(ms2, tail2, n_t[:, 1])
     got = [sha256_block.to_words(t) for t in (torch.stack(built),
@@ -607,32 +639,120 @@ def phase_step(rng, device, clock_mhz: float):
                                                tips)]
     want = [want_built, want_both, n_t, want_tip]
     diff = torch.cat([(g - w).abs() for g, w in zip(got, want)], dim=1)
-    mismatches = int((diff.amax(dim=1) > 0).sum())
-    max_err = int(diff.max())
+    return int((diff.amax(dim=1) > 0).sum()), int(diff.max())
+
+
+def k_block_calls_vs_plain(rng, device) -> int:
+    """Whole k-block calls (``mine_k``) against ``mine_k_plain`` on the
+    CPU at each k in STEP_CALL_KS and cap in STEP_CALL_CAPS (dbits 12: the
+    smaller cap leaves some blocks without a winner, the sentinel carried
+    on): nonces and tip. Returns the calls that differ."""
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch.ops import sha256_block
+
+    bad = 0
+    for k in STEP_CALL_KS:
+        prev = rng.integers(0, 1 << 32, 8, dtype=np.uint32)
+        data = rng.integers(0, 1 << 32, (k, 8), dtype=np.uint32)
+        for cap in STEP_CALL_CAPS:
+            got = sha256_block.mine_k(torch.from_numpy(prev).to(device),
+                                      torch.from_numpy(data).to(device),
+                                      41, 12, cap)
+            want = sha256_block.mine_k_plain(torch.from_numpy(prev),
+                                             torch.from_numpy(data), 41, 12,
+                                             cap)
+            if [t.cpu().tolist() for t in got] != [t.tolist() for t in want]:
+                bad += 1
+                log(f"MISMATCH k-block call k={k} cap={cap:#x}: kernel "
+                    f"{[t.cpu().tolist() for t in got]} plain "
+                    f"{[t.tolist() for t in want]}")
+    return bad
+
+
+def phase_step(rng, device, clock_mhz: float):
+    """The fused step kernel on the card: against the plain step, bit for
+    bit, over STEP_CASES seeded cases (sentinel nonce among them) and the
+    edge cases (``step_edge_cases``); whole k-block calls against the plain
+    sequence; then its time three ways, each over STEP_TIMED_LAUNCHES
+    finalize-and-build steps: launched from a Python loop (what the host
+    pays), enqueued back to back in one call into the library (the device
+    time of a launch), and the body's SM clocks from the measuring build's
+    clock stamps; its compiled size and ptxas's registers, stack and
+    spills. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    n, d = STEP_CASES, TIMED_DBITS
+    prev = rng.integers(0, 1 << 32, (n, 8), dtype=np.uint32)
+    data = rng.integers(0, 1 << 32, (n, 2, 8), dtype=np.uint32)
+    heights = rng.integers(0, 1 << 32, n)
+    nonces = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint32)
+    nonces[0, 0] = nonces[1, 1] = M32
+    mismatches, max_err = step_vs_plain(prev, data, heights, nonces, d,
+                                        device)
     log(f"phase 5 step kernel vs plain: {n} cases x 3 steps (build, "
         f"finalize and build, finalize into the tip; sentinel nonce in 2), "
         f"mismatches {mismatches}, max_abs_err {max_err}")
-    check(mismatches == 0, f"{mismatches} step kernel/plain mismatches")
+    edge_rng = np.random.default_rng(20261019)
+    edge_cases, edge_mismatches = 0, 0
+    for case in step_edge_cases(edge_rng):
+        bad, err = step_vs_plain(*case, device)
+        edge_cases += len(case[0])
+        edge_mismatches += bad
+        max_err = max(max_err, err)
+    log(f"phase 5 step kernel vs plain at the edges (prev words "
+        f"{STEP_EDGE_PREVS}, heights {STEP_EDGE_HEIGHTS}, bits "
+        f"{STEP_EDGE_BITS}, nonces {STEP_EDGE_NONCES}): {edge_cases} cases "
+        f"x 3 steps, mismatches {edge_mismatches}")
+    call_mismatches = k_block_calls_vs_plain(edge_rng, device)
+    log(f"phase 5 k-block calls vs mine_k_plain (k {STEP_CALL_KS}, caps "
+        f"{[hex(c) for c in STEP_CALL_CAPS]}): mismatches {call_mismatches}")
+    check(mismatches + edge_mismatches + call_mismatches == 0,
+          f"step kernel/plain mismatches: {mismatches} seeded, "
+          f"{edge_mismatches} at the edges, {call_mismatches} k-block calls")
 
+    prev_t = torch.from_numpy(prev).to(device)
+    data_t = torch.from_numpy(data).to(device)
     scratch = sha256_block.new_scratch(device)
     sha256_block.step(scratch, prev=prev_t[0], data=data_t[0, 0],
                       height=int(heights[0]), difficulty_bits=d)
     slot = torch.zeros(1, dtype=torch.uint32, device=device)
-    ev = (torch.cuda.Event(enable_timing=True),
-          torch.cuda.Event(enable_timing=True))
-    torch.cuda.synchronize()
-    ev[0].record()
-    for _ in range(STEP_TIMED_LAUNCHES):
-        sha256_block.step(scratch, data=data_t[0, 1], height=1,
-                          difficulty_bits=d, nonce_out=slot)
-    ev[1].record()
-    torch.cuda.synchronize()
-    ms_step = ev[0].elapsed_time(ev[1]) / STEP_TIMED_LAUNCHES
+    step_args = dict(data=data_t[0, 1], height=1, difficulty_bits=d,
+                     nonce_out=slot)
+    launches = STEP_TIMED_LAUNCHES
+
+    def timed(enqueue) -> float:
+        """CUDA-event ms of what ``enqueue`` puts on the stream."""
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        ev[0].record()
+        enqueue()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1])
+
+    def python_loop():
+        for _ in range(launches):
+            sha256_block.step(scratch, **step_args)
+
+    sha256_block.step_repeat(100, scratch, **step_args)      # warm-up
+    python_us = timed(python_loop) / launches * 1e3
+    device_us = timed(lambda: sha256_block.step_repeat(
+        launches, scratch, **step_args)) / launches * 1e3
+    stamps = torch.zeros(2 * launches, dtype=torch.int64, device=device)
+    sha256_block.step_repeat(launches, scratch, stamps=stamps, **step_args)
+    clocks = (stamps[1::2] - stamps[::2]).tolist()
+    body = spread(clocks)
+    body_us = body["median"] / clock_mhz
     plain = []
     for _ in range(5):
         t0 = time.perf_counter()
-        sha256_block.step_plain(scratch, data=data_t[0, 1], height=1,
-                                difficulty_bits=d, nonce_out=slot)
+        sha256_block.step_plain(scratch, **step_args)
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t0) * 1e3)
     plain_ms = sorted(plain)[len(plain) // 2]
@@ -648,18 +768,28 @@ def phase_step(rng, device, clock_mhz: float):
     census = sha256_cuda.function_census(sha256_cuda.disassemble(),
                                          sha256_cuda.STEP_KERNEL_SYMBOL)
     instructions = sum(census.values())
-    log(f"phase 5 step kernel (finalize and build, {STEP_TIMED_LAUNCHES} "
-        f"launches back to back): {ms_step * 1e3:.4f} us a launch; bound "
+    resources = sha256_cuda.ptxas_report(sha256_cuda.build_report(),
+                                         sha256_cuda.STEP_KERNEL_SYMBOL)
+    log(f"phase 5 step kernel (finalize and build, {launches} launches): "
+        f"{device_us:.4f} us a launch on the card, enqueued back to back in "
+        f"one call; {python_us:.4f} us a launch from a Python loop; body "
+        f"{body['median']} SM clocks median ({body_us:.4f} us at "
+        f"{clock_mhz:.0f} MHz; 90th percentile {body['p90']}, max "
+        f"{body['max']}, first launch {clocks[0]}); bound "
         f"{bound * 1e3:.4f} us ({ops} dependent operations at one clock "
-        f"each, {clock_mhz:.0f} MHz; {step_bytes} bytes take "
-        f"{bound_bytes * 1e6:.4f} ns); the compiled kernel has "
-        f"{instructions} instructions ({instructions / clock_mhz:.4f} us "
-        f"at one a clock), by opcode {census}; plain step on the card "
+        f"each; {step_bytes} bytes take {bound_bytes * 1e6:.4f} ns); "
+        f"the compiled kernel has {instructions} instructions "
+        f"({instructions / clock_mhz:.4f} us at one a clock), by opcode "
+        f"{census}; ptxas {resources}; plain step on the card "
         f"{plain_ms:.3f} ms")
-    return {"mismatches": mismatches, "max_abs_err": max_err,
-            "ms": ms_step, "plain_ms": plain_ms, "bound_ms": bound,
-            "dependent_ops": ops, "bytes": step_bytes,
-            "instructions": instructions}
+    return {"mismatches": mismatches, "edge_cases": edge_cases,
+            "edge_mismatches": edge_mismatches,
+            "k_block_call_mismatches": call_mismatches,
+            "max_abs_err": max_err, "ms": device_us / 1e3,
+            "device_us": device_us, "python_loop_us": python_us,
+            "body_us": body_us, "body_clocks": body, "plain_ms": plain_ms,
+            "bound_ms": bound, "dependent_ops": ops, "bytes": step_bytes,
+            "instructions": instructions, **resources}
 
 
 def phase_ext_symbol(device):
@@ -696,6 +826,37 @@ def phase_ext_symbol(device):
     return mismatches
 
 
+def spread(values) -> dict:
+    """Median, 90th percentile and max of ``values`` (and their number)."""
+    v = sorted(values)
+    if not v:
+        return {"n": 0, "median": None, "p90": None, "max": None}
+    return {"n": len(v), "median": v[len(v) // 2],
+            "p90": v[len(v) * 9 // 10], "max": v[-1]}
+
+
+def block_gaps(calls) -> dict[str, list[float]]:
+    """Per-block device gaps of a fused run from its CUDA-event times (ms
+    on one clock), given per k-block call as ``{"sweeps": [(before,
+    after)] * k, "steps": [after] * (k + 1)}``; step j runs before sweep j
+    and step k finalizes the call. Block j's gap ("gap") runs from the end
+    of sweep j to the start of sweep j + 1 of the same call; the step
+    between them takes its first part ("step"), the symbol copy the rest
+    ("copy"; the sweep's own launch lies inside its events). Nothing
+    across two calls counts: the host and the calls' first and last steps
+    lie there."""
+    out = {"gap": [], "step": [], "copy": []}
+    for call in calls:
+        sweeps, steps = call["sweeps"], call.get("steps")
+        for j in range(len(sweeps) - 1):
+            end, start = sweeps[j][1], sweeps[j + 1][0]
+            out["gap"].append(start - end)
+            if steps is not None:
+                out["step"].append(steps[j + 1] - end)
+                out["copy"].append(start - steps[j + 1])
+    return out
+
+
 def count_syncs(caught) -> int:
     """Warnings of PyTorch's sync debug mode ("called a synchronizing CUDA
     operation") among ``caught``; its first switch to "warn" also warns
@@ -719,9 +880,11 @@ def sync_detector_works(device) -> bool:
 
 def phase_fused(device, miner_chain: dict) -> dict:
     """Mines the FUSED_RUNS pins through FusedMiner: an untimed run (tip,
-    launches, host waits, hidden syncs flagged by PyTorch, wall) and a run
-    whose sweeps are bracketed by CUDA events (kernel share). Returns the
-    numbers by (dbits, blocks)."""
+    launches, host waits, hidden syncs flagged by PyTorch, wall) and an
+    events run, whose sweeps are bracketed by CUDA events and whose steps
+    are followed by one (kernel share; the per-block device gaps and their
+    split, ``block_gaps``; the rest of the wall, host head and tail).
+    Returns the numbers by (dbits, blocks)."""
     import torch
 
     from mpi_blockchain_tpu_torch.config import MinerConfig
@@ -741,18 +904,22 @@ def phase_fused(device, miner_chain: dict) -> dict:
         for timed in (False, True):
             fm = FusedMiner(cfg, blocks_per_call=k)
             fm.warmup()
-            events = []
+            call_events = []
             mine_k = sha256_block.mine_k
 
             def timed_mine_k(prev, data, *args, **kwargs):
+                n = data.shape[0]
                 evs = [torch.cuda.Event(enable_timing=True)
-                       for _ in range(2 * data.shape[0])]
+                       for _ in range(3 * n + 1)]
                 for ev in evs:      # creates each event before the call
                     ev.record()
-                events.extend(zip(evs[::2], evs[1::2]))
-                return mine_k(prev, data, *args, sweep_events=evs, **kwargs)
+                call_events.append(evs)
+                return mine_k(prev, data, *args, sweep_events=evs[:2 * n],
+                              step_events=evs[2 * n:], **kwargs)
 
             torch.cuda.synchronize()
+            origin = torch.cuda.Event(enable_timing=True)
+            origin.record()
             if timed:
                 sha256_block.mine_k = timed_mine_k
             sha256_cuda.launches = sha256_block.step_launches = 0
@@ -782,9 +949,22 @@ def phase_fused(device, miner_chain: dict) -> dict:
             check(syncs == 0, f"fused d{d}/n{blocks}: PyTorch flagged "
                   f"{syncs} synchronizing operations")
             if timed:
-                kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+                times = [[origin.elapsed_time(ev) for ev in evs]
+                         for evs in call_events]
+                split = block_gaps(
+                    [{"sweeps": list(zip(t[:2 * (len(t) // 3):2],
+                                         t[1:2 * (len(t) // 3):2])),
+                      "steps": t[2 * (len(t) // 3):]} for t in times])
+                kernel_s = sum(t[2 * j + 1] - t[2 * j] for t in times
+                               for j in range(len(t) // 3)) / 1e3
+                gaps_s = sum(split["gap"]) / 1e3
                 row.update(timed_wall_s=wall, kernel_s=kernel_s,
-                           kernel_share=kernel_s / wall)
+                           kernel_share=kernel_s / wall,
+                           gap_ms=spread(split["gap"]),
+                           gap_step_ms=spread(split["step"]),
+                           gap_copy_ms=spread(split["copy"]),
+                           gaps_s=gaps_s,
+                           rest_s=wall - kernel_s - gaps_s)
             else:
                 row.update(wall_s=wall, sweeps=sweeps, steps=steps,
                            host_waits=fm.host_waits, calls=calls,
@@ -799,8 +979,13 @@ def phase_fused(device, miner_chain: dict) -> dict:
             f"{tip} matches; wall {row['wall_s']:.6f} s{beside}; "
             f"{row['sweeps']} sweeps, {row['steps']} steps, "
             f"{row['host_waits']} host waits for {calls} calls, "
-            f"{row['hidden_syncs']} hidden syncs; timed run: wall {row['timed_wall_s']:.6f} s, sweeps "
-            f"{row['kernel_s']:.6f} s ({row['kernel_share']:.4f} of wall)")
+            f"{row['hidden_syncs']} hidden syncs; events run: wall "
+            f"{row['timed_wall_s']:.6f} s, sweeps {row['kernel_s']:.6f} s "
+            f"({row['kernel_share']:.4f} of wall), gaps between sweeps in a "
+            f"call {row['gaps_s']:.6f} s, rest (host head and tail, calls' "
+            f"first and last steps) {row['rest_s']:.6f} s; per-block gap "
+            f"(ms) {row['gap_ms']}, of it the step {row['gap_step_ms']} and "
+            f"the symbol copy {row['gap_copy_ms']}")
     return results
 
 
@@ -863,12 +1048,10 @@ def main() -> int:
         "fused_d24_n1000": f24, "fused_d16_n30": f16}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
-        "launches": f24["steps"], "mismatches": step["mismatches"],
-        "max_abs_err": step["max_abs_err"], "ms": step["ms"],
-        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
-        "bound_by": "operations", "library_ms": None,
-        "dependent_ops": step["dependent_ops"],
-        "instructions": step["instructions"]}]}))
+        "launches": f24["steps"], "bound_by": "operations",
+        "library_ms": None, **step,
+        "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
+        "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,12 +24,18 @@ _CORE_SOURCES = ("sha256.cpp", "chain.cpp", "capi.cpp")
 _CORE_HEADERS = ("sha256.hpp", "chain.hpp")
 
 
+def build_log(out: pathlib.Path) -> pathlib.Path:
+    """Where ``build_shared`` keeps the compiler's output for ``out``."""
+    return out.with_name(out.name + ".log")
+
+
 def build_shared(command: list[str], sources: list[pathlib.Path],
                  headers: list[pathlib.Path], out: pathlib.Path
                  ) -> pathlib.Path:
     """Runs ``command -o out sources...`` unless ``out`` is newer than
-    every source and header. Raises RuntimeError with the compiler's
-    output when the build fails."""
+    every source and header, and keeps the compiler's output of a build
+    that succeeds in ``build_log(out)``. Raises RuntimeError with the
+    compiler's output when the build fails."""
     if out.exists():
         built = out.stat().st_mtime
         if all(p.stat().st_mtime <= built for p in (*sources, *headers)):
@@ -44,6 +50,7 @@ def build_shared(command: list[str], sources: list[pathlib.Path],
         if proc.returncode != 0:
             raise RuntimeError(f"building {out.name} failed "
                                f"({' '.join(command)}):\n{proc.stderr}")
+        build_log(out).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)

@@ -87,14 +87,31 @@
 // finalizes the block just swept (its lowest winner from the result buffer,
 // and that header's double hash, the next prev_hash), builds the next
 // block's midstate, chunk-2 template and extended midstate, and resets the
-// result buffer, cursor included. What bounds it is latency: its three
-// compressions and the extension form one dependent chain, since each
-// compression's input is the one before's digest. One thread runs it: the
-// chain leaves little work to spread, and at full size the step is about
-// 1% of a block's time (PERF.md). sha256d_fused_enqueue puts a whole
-// k-block call on a stream (step, symbol copy and early-exit sweep over
-// [0, cap), k times, then a final step), so the host makes one call per k
-// blocks and reads nothing back between them.
+// result buffer, cursor included. What bounds it, on an NVIDIA H100 80GB
+// HBM3 at a 700.00 W power limit (PERF.md; the alternatives are rebuilt from
+// text patches and timed in turns by tools/step_variants.py):
+//   * its dependent chain: three compressions, each fed by the one before's
+//     digest, on one thread. The body takes about 9300 SM clocks (4.7 us)
+//     for its 4384 instructions. Built compact (one 16-round body in loops,
+//     720 instructions) it ran 24% more clocks, as the loops and the
+//     constants it no longer folds add instructions, and after a sweep the
+//     unrolled code started no later than the compact one: fetching the
+//     code does not cost. So one thread runs the three compressions
+//     unrolled, with plain adds that fuse into three-input IADD3s, the
+//     schedule in a 16-word ring of registers;
+//   * its launch: back to back a step takes 6.6 us on the card, 1.9 us
+//     over its body, and in the fused loop 9.8 us from the end of a sweep.
+//     A step that follows a sweep is a programmatic dependent launch: it
+//     may start while the sweep's grid drains, loads its template,
+//     midstate and data words (nothing the sweep writes), and waits for
+//     the sweep (griddepcontrol.wait) only before it reads the result
+//     buffer. That saved 1.0 us a block where the sweeps are short (dbits
+//     12); at dbits 24 the calls' spread hides it. Every load is issued
+//     before any store, through __restrict__ pointers, so the loads cost
+//     one round trip (0.5 us a block at dbits 12).
+// sha256d_fused_enqueue puts a whole k-block call on a stream (step, symbol
+// copy and early-exit sweep over [0, cap), k times, then a final step), so
+// the host makes one call per k blocks and reads nothing back between them.
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -440,15 +457,46 @@ struct StepArgs {
   uint32_t bits;         // difficulty bits of the block built
 };
 
-// state <- compress(state, w[0..15]), the feed-forward included; w is the
-// message schedule's storage.
-__device__ __forceinline__ void compress(uint32_t (&s)[8],
-                                         uint32_t (&w)[64]) {
-  const uint32_t in[8] = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
-  expand<16>(w, 1u);
-  rounds<0>(s, w, 1u);
+// The schedule's next 16 words, in place on the ring m (see compress_ring).
+__device__ __forceinline__ void expand_ring(uint32_t (&m)[16]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] += in[i];
+  for (int i = 0; i < 16; ++i)
+    m[i] = small_sigma1(m[(i + 14) & 15]) +
+           (m[i] + m[(i + 9) & 15] + small_sigma0(m[(i + 1) & 15]));
+}
+
+// state <- compress(state, m), the feed-forward included. m holds the 16
+// message words and is the schedule's ring: trip t runs rounds 16 t ..
+// 16 t + 15 on m[i] = w[16 t + i], then expands m in place into the next 16
+// words, so every index is static once the trips are unrolled and the
+// schedule stays in registers. The adds are plain: the compiler fuses them
+// into three-input IADD3s, which keep the chain short.
+__device__ __forceinline__ void compress_ring(uint32_t (&s)[8],
+                                              uint32_t (&m)[16]) {
+  uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
+  uint32_t e = s[4], f = s[5], g = s[6], h = s[7];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      // h + K + w is known a round early: off the critical path.
+      const uint32_t t1 =
+          h + (kK[16 * t + i] + m[i]) + big_sigma1(e) + ch(e, f, g);
+      const uint32_t t2 = big_sigma0(a) + maj(a, b, c);
+      h = g; g = f; f = e; e = d + t1;
+      d = c; c = b; b = a; a = t1 + t2;
+    }
+    if (t < 3) expand_ring(m);
+  }
+  s[0] += a; s[1] += b; s[2] += c; s[3] += d;
+  s[4] += e; s[5] += f; s[6] += g; s[7] += h;
+}
+
+template <int kN>
+__device__ __forceinline__ void load_words(uint32_t (&dst)[kN],
+                                           const uint32_t* __restrict__ src) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) dst[i] = src[i];
 }
 
 // The extended midstate of a template (ops/sha256_sched.py): rounds 0..2
@@ -479,79 +527,136 @@ __device__ __forceinline__ void extend_midstate(const uint32_t (&ms)[8],
   x[kExtRc19] = small_sigma0(t[4]) + small_sigma1(x[kExtW17]);
 }
 
-__global__ void block_step_kernel(const StepArgs a) {
-  uint32_t* const result = a.scratch + kScratchResult;
-  uint32_t* const ext = a.scratch + kScratchExt;
-  uint32_t* const midstate = a.scratch + kScratchMidstate;
-  uint32_t* const tail = a.scratch + kScratchTail;
-  uint32_t prev[8];
-  if (a.nonce_out != nullptr) {
-    // Finalize the block just swept: its lowest qualifying nonce
-    // (0xFFFFFFFF when there is none, which the host's validation then
-    // rejects) and the double hash of its header, the next prev_hash.
-    const uint32_t nonce = result[1];
-    *a.nonce_out = nonce;
-    uint32_t w[64], s[8];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = tail[i];
-    w[3] = __byte_perm(nonce, 0, 0x0123);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = midstate[i];
-    compress(s, w);
-    // Hash 2 over the 32-byte digest: its words are the message directly.
-    uint32_t w2[64];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) w2[i] = s[i];
-    w2[8] = 0x80000000u;
-#pragma unroll
-    for (int i = 9; i < 15; ++i) w2[i] = 0;
-    w2[15] = 32 * 8;
-    uint32_t s2[8] = {kIV0, kIV1, kIV2, kIV3, kIV4, kIV5, kIV6, kIV7};
-    compress(s2, w2);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) prev[i] = s2[i];
+// One thread runs the step (StepArgs). Finalize when nonce_out is given:
+// the swept block's lowest winner from the result buffer (0xFFFFFFFF when
+// there is none, which the host's validation then rejects) and the double
+// hash of its header, the next prev_hash. Build when data is given: the
+// next header's midstate, chunk-2 template and extended midstate, and the
+// result buffer reset, cursor included. kStamp is a measuring build: it
+// writes clock64() at its first and last instruction to stamps[0] and
+// stamps[1].
+template <bool kStamp>
+__global__ void __launch_bounds__(1)
+    block_step_kernel(const uint32_t* __restrict__ prev,
+                      const uint32_t* __restrict__ data,
+                      uint32_t* __restrict__ scratch,
+                      uint32_t* __restrict__ nonce_out,
+                      uint32_t* __restrict__ tip_out, uint32_t height,
+                      uint32_t bits, unsigned long long* stamps) {
+  const long long start = kStamp ? clock64() : 0;
+  const bool finalize = nonce_out != nullptr, build = data != nullptr;
+  uint32_t* const result = scratch + kScratchResult;
+  uint32_t* const midstate = scratch + kScratchMidstate;
+  uint32_t* const tail = scratch + kScratchTail;
+  // s and m are the state and message of the compression at hand, pw the
+  // previous digest, dw the data words.
+  uint32_t s[8], m[16], pw[8], dw[8];
+  // The template, midstate and data words: nothing the sweep before this
+  // step writes, so a programmatic dependent launch loads them before it
+  // waits for the sweep.
+  if (finalize) {
+    load_words(m, tail);
+    load_words(s, midstate);
+  }
+  if (build) load_words(dw, data);
+  // Waits for the sweep launched before this step (a no-op in plain
+  // stream order).
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  uint32_t nonce = 0;
+  if (finalize) {
+    nonce = result[1];
+    m[3] = __byte_perm(nonce, 0, 0x0123);
   } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) prev[i] = a.prev[i];
+    load_words(pw, prev);
   }
-  if (a.data == nullptr) {
-    if (a.tip_out != nullptr) {
+  // Compression c = 0 hashes the swept header's chunk 2 from its midstate,
+  // c = 1 that digest (the next prev_hash), c = 2 the next header's chunk 1
+  // (version | prev_hash | data_hash[0:7], big-endian words).
+  const int first = finalize ? 0 : 2, last = build ? 3 : 2;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a.tip_out[i] = prev[i];
+  for (int c = 0; c < 3; ++c) {
+    if (c < first || c >= last) continue;
+    if (c == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m[i] = s[i];
+      m[8] = 0x80000000u;
+#pragma unroll
+      for (int i = 9; i < 15; ++i) m[i] = 0;
+      m[15] = 32 * 8;
+    } else if (c == 2) {
+      m[0] = kVersionWord;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m[1 + i] = pw[i];
+#pragma unroll
+      for (int i = 0; i < 7; ++i) m[9 + i] = dw[i];
     }
-    return;
+    if (c > 0) {
+      s[0] = kIV0; s[1] = kIV1; s[2] = kIV2; s[3] = kIV3;
+      s[4] = kIV4; s[5] = kIV5; s[6] = kIV6; s[7] = kIV7;
+    }
+    compress_ring(s, m);
+    if (c == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pw[i] = s[i];
+    }
   }
-  // Header chunk 1, big-endian words: version | prev_hash | data_hash[0:7].
-  uint32_t w[64];
-  w[0] = kVersionWord;
+  if (finalize) *nonce_out = nonce;
+  if (!build) {
+    if (tip_out != nullptr) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) w[1 + i] = prev[i];
+      for (int i = 0; i < 8; ++i) tip_out[i] = pw[i];
+    }
+  } else {
+    // Chunk-2 template: data_hash[7] | timestamp | bits | nonce slot |
+    // padding (the header stores the little-endian fields; SHA reads
+    // big-endian).
+    uint32_t t[16] = {dw[7], __byte_perm(height, 0, 0x0123),
+                      __byte_perm(bits, 0, 0x0123), 0, 0x80000000u};
+    t[15] = 80 * 8;
+    uint32_t x[kExtWords];
+    extend_midstate(s, t, x);
 #pragma unroll
-  for (int i = 0; i < 7; ++i) w[9 + i] = a.data[i];
-  uint32_t ms[8] = {kIV0, kIV1, kIV2, kIV3, kIV4, kIV5, kIV6, kIV7};
-  compress(ms, w);
-  // Chunk-2 template: data_hash[7] | timestamp | bits | nonce slot | padding
-  // (the header stores the little-endian fields; SHA reads big-endian).
-  uint32_t t[16] = {a.data[7], __byte_perm(a.height, 0, 0x0123),
-                    __byte_perm(a.bits, 0, 0x0123), 0, 0x80000000u};
-  t[15] = 80 * 8;
-  uint32_t x[kExtWords];
-  extend_midstate(ms, t, x);
+    for (int i = 0; i < kExtWords; ++i) scratch[kScratchExt + i] = x[i];
 #pragma unroll
-  for (int i = 0; i < kExtWords; ++i) ext[i] = x[i];
+    for (int i = 0; i < 8; ++i) midstate[i] = s[i];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) midstate[i] = ms[i];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) tail[i] = t[i];
-  result[0] = 0;
-  result[1] = 0xFFFFFFFFu;
-  result[2] = 0;
-  result[3] = 0;
+    for (int i = 0; i < 16; ++i) tail[i] = t[i];
+    result[0] = 0;
+    result[1] = 0xFFFFFFFFu;
+    result[2] = 0;
+    result[3] = 0;
+  }
+  if (kStamp) {
+    stamps[0] = start;
+    stamps[1] = clock64();
+  }
 }
 
-int launch_step(const StepArgs& args, cudaStream_t stream) {
-  block_step_kernel<<<1, 1, 0, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
+// Enqueues one step on `stream`. One that follows a sweep (after_sweep) is
+// a programmatic dependent launch: it may start while the sweep's grid
+// drains, and waits for the sweep's results at griddepcontrol.wait. Steps
+// back to back keep plain stream order: they share their scratch, which a
+// step reads before it waits. A refused launch returns its error; nothing
+// retries it another way.
+template <bool kStamp = false>
+int launch_step(const StepArgs& a, cudaStream_t stream,
+                bool after_sweep = false,
+                unsigned long long* stamps = nullptr) {
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(1);
+  config.blockDim = dim3(1);
+  config.stream = stream;
+  config.attrs = &pdl;
+  config.numAttrs = after_sweep ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&config, block_step_kernel<kStamp>, a.prev, a.data,
+                         a.scratch, a.nonce_out, a.tip_out, a.height, a.bits,
+                         stamps);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // Enqueues the copy of a device ext into kExtSymbol.
@@ -620,6 +725,30 @@ int sha256d_block_step_launch(const uint32_t* prev, const uint32_t* data,
   return launch_step(args, static_cast<cudaStream_t>(stream));
 }
 
+// Enqueues n such steps back to back on `stream` in one call, so that no
+// host work lies between the launches (a measuring entry). A non-null
+// `stamps` (2 n device uint64) selects the measuring build: launch i writes
+// clock64() at its first and last instruction to stamps[2 i], stamps[2 i + 1].
+int sha256d_block_step_repeat(int n, const uint32_t* prev,
+                              const uint32_t* data, void* scratch,
+                              uint32_t* nonce_out, uint32_t* tip_out,
+                              unsigned int height, unsigned int bits,
+                              void* stamps, void* stream) {
+  if (n < 1 || reinterpret_cast<uintptr_t>(scratch) % 8 != 0 ||
+      (prev == nullptr && nonce_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StepArgs args{prev, data, static_cast<uint32_t*>(scratch),
+                      nonce_out, tip_out, height, bits};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* const t = static_cast<unsigned long long*>(stamps);
+  for (int i = 0; i < n; ++i) {
+    const int err = t ? launch_step<true>(args, s, false, t + 2 * i)
+                      : launch_step(args, s);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 // Enqueues a whole k-block call of the fused miner on `stream`: for each
 // block j, the step (finalize block j - 1, build block j at height
 // start_height + j + 1 from data[8 j .. 8 j + 8)), the copy of its ext into
@@ -627,14 +756,17 @@ int sha256d_block_step_launch(const uint32_t* prev, const uint32_t* data,
 // finalizes block k - 1 into tip. nonces gets the k winners (0xFFFFFFFF where
 // [0, cap) holds none). prev, data, nonces and tip are device uint32 arrays
 // of 8, 8 k, k and 8 words; scratch is a device buffer of 48 words, 8-byte
-// aligned. A non-null sweep_events holds 2 k cudaEvent_t, recorded before
-// and after each sweep. Returns the first CUDA error (0 on success); nothing
-// synchronizes.
+// aligned. For measuring, a non-null sweep_events holds 2 k cudaEvent_t,
+// recorded before and after each sweep, and a non-null step_events k + 1,
+// recorded after each step, which splits the device time between two
+// sweeps into the step and the symbol copy. Returns the first CUDA error
+// (0 on success); nothing synchronizes.
 int sha256d_fused_enqueue(const uint32_t* prev, const uint32_t* data, int k,
                           unsigned int start_height, int difficulty_bits,
                           unsigned long long cap, void* scratch,
                           uint32_t* nonces, uint32_t* tip,
-                          void* const* sweep_events, void* stream) {
+                          void* const* sweep_events,
+                          void* const* step_events, void* stream) {
   if (k < 1 || difficulty_bits < 0 ||
       !valid_range(0, cap, difficulty_bits, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -647,7 +779,10 @@ int sha256d_fused_enqueue(const uint32_t* prev, const uint32_t* data, int k,
                         j == k ? tip : nullptr,
                         start_height + static_cast<unsigned int>(j) + 1u,
                         static_cast<uint32_t>(difficulty_bits)};
-    int err = launch_step(step, s);
+    int err = launch_step(step, s, j > 0);
+    if (err == 0 && step_events != nullptr)
+      err = static_cast<int>(
+          cudaEventRecord(static_cast<cudaEvent_t>(step_events[j]), s));
     if (err != 0 || j == k) return err;
     err = copy_ext_to_symbol(sc + kScratchExt, s);
     if (err != 0) return err;

@@ -18,9 +18,11 @@ plain sweep computes (``sha256_torch``), of any leading shape. The CUDA
 step kernel (``csrc/sha256d_sweep.cu``, ``block_step_kernel``) does both
 for one block per launch on one thread, in place on a device scratch
 buffer; ``step`` is its wrapper and ``step_plain`` the same step in plain
-PyTorch. ``mine_k`` enqueues a whole k-block call of the fused loop (step,
-copy of the ext into the sweep's ``__constant__`` symbol, early-exit
-sweep, k times, then a final step) in one call into the library;
+PyTorch; ``step_repeat`` enqueues n steps in one call into the library, so
+that the kernel can be timed apart from the host. ``mine_k`` enqueues a
+whole k-block call of the fused loop (step, copy of the ext into the
+sweep's ``__constant__`` symbol, early-exit sweep, k times, then a final
+step) in one call into the library;
 ``mine_k_plain`` is the same sequence with the plain step and the plain
 sweep.
 """
@@ -220,18 +222,67 @@ def step(scratch: torch.Tensor, *, prev: torch.Tensor | None = None,
     if device.type != "cuda":
         raise ConfigError(f"the step runs on a CUDA device or the CPU, "
                           f"not {device}")
-    if prev is None and nonce_out is None:
-        raise ValueError("a step that finalizes no block needs prev")
-    ptrs = [_ptr(prev, (8,), device, "prev"), _ptr(data, (8,), device, "data"),
-            scratch.data_ptr(), _ptr(nonce_out, (1,), device, "nonce_out"),
-            _ptr(tip_out, (8,), device, "tip_out")]
+    args = _step_args(scratch, prev, data, height, difficulty_bits,
+                      nonce_out, tip_out)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = sha256_cuda._lib().sha256d_block_step_launch(
-            *ptrs, int(height) & M32, int(difficulty_bits) & M32, stream)
+        err = sha256_cuda._lib().sha256d_block_step_launch(*args, stream)
     if err != 0:
         raise sha256_cuda.cuda_error("the block step launch", err)
     step_launches += 1
+
+
+def _step_args(scratch, prev, data, height, difficulty_bits, nonce_out,
+               tip_out) -> list:
+    """The step kernel's C arguments (pointers and words) for a CUDA
+    ``scratch``; raises on what the kernel does not take."""
+    device = scratch.device
+    if prev is None and nonce_out is None:
+        raise ValueError("a step that finalizes no block needs prev")
+    return [_ptr(prev, (8,), device, "prev"), _ptr(data, (8,), device, "data"),
+            scratch.data_ptr(), _ptr(nonce_out, (1,), device, "nonce_out"),
+            _ptr(tip_out, (8,), device, "tip_out"), int(height) & M32,
+            int(difficulty_bits) & M32]
+
+
+def step_repeat(n: int, scratch: torch.Tensor, *,
+                prev: torch.Tensor | None = None,
+                data: torch.Tensor | None = None, height: int = 0,
+                difficulty_bits: int = 0,
+                nonce_out: torch.Tensor | None = None,
+                tip_out: torch.Tensor | None = None,
+                stamps: torch.Tensor | None = None) -> None:
+    """Enqueues ``n`` steps with the same arguments (see ``step``) back to
+    back on the current stream of ``scratch``'s CUDA device, in one call
+    into the library, so that no host work lies between the launches: what
+    they take on the card is the kernel's. It measures the kernel, so it
+    raises on any other device. ``stamps``, a (2 n,) int64 tensor on the
+    same device, selects the measuring build, which writes the SM clock
+    (``clock64``) at each launch's first and last instruction to
+    stamps[2 i] and stamps[2 i + 1]."""
+    global step_launches
+    _check_scratch(scratch)
+    device = scratch.device
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    if device.type != "cuda":
+        raise ConfigError(f"step_repeat times the step kernel on a CUDA "
+                          f"device, not {device}")
+    if stamps is not None and (stamps.device != device
+                               or stamps.dtype != torch.int64
+                               or stamps.shape != (2 * n,)
+                               or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous ({2 * n},) int64 "
+                         f"tensor on {device}")
+    args = _step_args(scratch, prev, data, height, difficulty_bits,
+                      nonce_out, tip_out)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = sha256_cuda._lib().sha256d_block_step_repeat(
+            n, *args, None if stamps is None else stamps.data_ptr(), stream)
+    if err != 0:
+        raise sha256_cuda.cuda_error("the repeated block step launch", err)
+    step_launches += n
 
 
 def _check_call(prev: torch.Tensor, data: torch.Tensor, difficulty_bits: int,
@@ -278,9 +329,19 @@ def mine_k_plain(prev_words: torch.Tensor, data_words: torch.Tensor,
     return nonces, tip
 
 
+def _event_handles(events: list | None, n: int, name: str):
+    """A ctypes array of the ``n`` CUDA events' handles (None for None)."""
+    if events is None:
+        return None
+    if len(events) != n or not all(ev.cuda_event for ev in events):
+        raise ValueError(f"{name} must be {n} recorded CUDA events")
+    return (ctypes.c_void_p * n)(*(ev.cuda_event for ev in events))
+
+
 def mine_k(prev_words: torch.Tensor, data_words: torch.Tensor,
            start_height: int, difficulty_bits: int, cap: int, *,
-           sweep_events: list | None = None
+           sweep_events: list | None = None,
+           step_events: list | None = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mines the k blocks of ``data_words`` (k, 8) uint32 on
     ``prev_words`` (8,) uint32, the first at ``start_height + 1``: returns
@@ -294,7 +355,7 @@ def mine_k(prev_words: torch.Tensor, data_words: torch.Tensor,
     raises if that fails. On the CPU it runs ``mine_k_plain``.
     ``sweep_events`` (CUDA only), 2 k ``torch.cuda.Event`` already
     recorded once, are recorded again before and after each block's
-    sweep."""
+    sweep; ``step_events``, k + 1 such events, after each step."""
     global step_launches
     k = _check_call(prev_words, data_words, difficulty_bits, cap)
     device = prev_words.device
@@ -306,26 +367,20 @@ def mine_k(prev_words: torch.Tensor, data_words: torch.Tensor,
                           f"CPU, not {device}")
     sha256_cuda.check_device_words(prev_words, (8,), device, "prev_words")
     sha256_cuda.check_device_words(data_words, (k, 8), device, "data_words")
-    handles = None
-    if sweep_events is not None:
-        if len(sweep_events) != 2 * k or not all(ev.cuda_event
-                                                 for ev in sweep_events):
-            raise ValueError(f"sweep_events must be {2 * k} recorded "
-                             f"CUDA events")
-        handles = (ctypes.c_void_p * (2 * k))(
-            *(ev.cuda_event for ev in sweep_events))
+    sweeps = _event_handles(sweep_events, 2 * k, "sweep_events")
+    steps = _event_handles(step_events, k + 1, "step_events")
     nonces = torch.empty(k, dtype=torch.uint32, device=device)
     tip = torch.empty(8, dtype=torch.uint32, device=device)
     # The first step builds a block, which resets the result buffer.
     scratch = torch.empty(SCRATCH_WORDS, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
+        args = [prev_words.data_ptr(), data_words.data_ptr(), k,
+                int(start_height) & M32, int(difficulty_bits), int(cap),
+                scratch.data_ptr(), nonces.data_ptr(), tip.data_ptr(), sweeps]
         with sha256_cuda.ext_symbol_user(device, stream):
             err = sha256_cuda._lib().sha256d_fused_enqueue(
-                prev_words.data_ptr(), data_words.data_ptr(), k,
-                int(start_height) & M32, int(difficulty_bits), int(cap),
-                scratch.data_ptr(), nonces.data_ptr(), tip.data_ptr(),
-                handles, stream.cuda_stream)
+                *args, steps, stream.cuda_stream)
     if err != 0:
         raise sha256_cuda.cuda_error("the fused k-block enqueue", err)
     sha256_cuda.launches += k

@@ -10,7 +10,9 @@ instantiation that reads it from the library's ``__constant__`` symbol, as
 the fused miner's loop does (``ext_symbol_user``).
 ``bound_sm_clocks_per_nonce`` gives the kernel's bound from the
 function's work: the ALU-only instructions of the compiled loop
-(``loop_census``) and the adds of the source (``source_adds``).
+(``loop_census``) and the adds of the source (``source_adds``);
+``function_census`` and ``ptxas_report`` give a kernel's compiled size and
+its registers, stack and spills.
 """
 from __future__ import annotations
 
@@ -28,12 +30,14 @@ import numpy as np
 import torch
 
 from ..config import ConfigError
-from ..core.build import BUILD_DIR, build_shared
+from ..core.build import BUILD_DIR, build_log, build_shared
 from . import sha256_sched, sha256_torch
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "sha256d_sweep.cu"
+#: ``-Xptxas -v`` makes ptxas report each kernel's registers, stack and
+#: spills; ``build_shared`` keeps that beside the library (``ptxas_report``).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: Nonces in one slice of the kernel's work queue (``kSlice``): a warp takes
 #: that many consecutive nonces, one a lane, per atomic on the cursor.
 SLICE_NONCES = 32
@@ -91,14 +95,20 @@ def bind(library: pathlib.Path) -> ctypes.CDLL:
     lib.sha256d_fused_enqueue.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
         ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.sha256d_fused_enqueue.restype = ctypes.c_int
+    lib.sha256d_block_step_repeat.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.sha256d_block_step_repeat.restype = ctypes.c_int
     lib.sha256d_sweep_occupancy.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int)]
     lib.sha256d_sweep_occupancy.restype = ctypes.c_int
     lib.sha256d_sweep_resident_blocks.argtypes = [ctypes.c_int]
     lib.sha256d_sweep_resident_blocks.restype = ctypes.c_longlong
+    lib.sha256d_sweep_block_threads.argtypes = []
     lib.sha256d_sweep_block_threads.restype = ctypes.c_int
     lib.sha256d_sweep_error_string.argtypes = [ctypes.c_int]
     lib.sha256d_sweep_error_string.restype = ctypes.c_char_p
@@ -371,8 +381,37 @@ def disassemble(library: pathlib.Path | None = None) -> str:
                           capture_output=True, text=True, check=True).stdout
 
 
-#: The mangled-name stem of the fused miner's step kernel.
-STEP_KERNEL_SYMBOL = "block_step_kernel"
+#: The mangled-name stem of the fused miner's step kernel, the production
+#: instantiation (``block_step_kernel<false>``; ``<true>`` writes clock
+#: stamps).
+STEP_KERNEL_SYMBOL = "block_step_kernelILb0E"
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str, name: str) -> dict[str, int]:
+    """Registers, stack frame and spill bytes of the first kernel whose
+    mangled name contains ``name``, from ``nvcc -Xptxas -v`` output."""
+    parts = _PTXAS_ENTRY.split(log)
+    for entry, body in zip(parts[1::2], parts[2::2]):
+        if name not in entry:
+            continue
+        frame, regs = _PTXAS_FRAME.search(body), _PTXAS_REGS.search(body)
+        if frame is None or regs is None:
+            break
+        stack, stores, loads = (int(v) for v in frame.groups())
+        return {"registers": int(regs.group(1)), "stack_bytes": stack,
+                "spill_store_bytes": stores, "spill_load_bytes": loads}
+    raise ValueError(f"ptxas reported nothing for {name}")
+
+
+def build_report(library: pathlib.Path | None = None) -> str:
+    """The compiler's output of a kernel library's build, the built one by
+    default (``-Xptxas -v`` in ``NVCC_FLAGS``)."""
+    return build_log(library or build()).read_text()
 
 
 def _instructions(sass: str, name: str) -> list[tuple[int, str, str]]:

@@ -34,6 +34,7 @@ from mpi_blockchain_tpu_torch.models.fused import FusedMiner, \
     make_fused_miner
 from mpi_blockchain_tpu_torch.models.miner import Miner
 from mpi_blockchain_tpu_torch.ops import sha256_block
+from chip_smoke import STEP_EDGE_BITS, STEP_EDGE_HEIGHTS, STEP_EDGE_PREVS
 from test_exhaustion import ExhaustFirstSpace
 
 # The suite runs in several worker processes at once; torch's per-op
@@ -69,13 +70,23 @@ def _header(prev: np.ndarray, data: np.ndarray, height: int, bits: int,
             + struct.pack("<III", height, bits, nonce))
 
 
-@pytest.mark.parametrize("seed", [1, 2, 3])
+# The step kernel's edge cases (chip_smoke.step_edge_cases): every prev
+# word all-zero or all-ones, at each edge difficulty. The plain step, which
+# the kernel is held to on the card, is held here to the reference there.
+EDGES = [pytest.param((pv, bits), id=f"prev{pv:#x}-bits{bits}")
+         for pv in STEP_EDGE_PREVS for bits in STEP_EDGE_BITS]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, *EDGES])
 def test_block_template_matches_the_reference_header_build(seed):
-    rng = np.random.default_rng(seed)
+    edge = isinstance(seed, tuple)
+    rng = np.random.default_rng(list(seed) if edge else seed)
     prev = rng.integers(0, 1 << 32, (4, 8), dtype=np.uint32)
     data = rng.integers(0, 1 << 32, (4, 8), dtype=np.uint32)
     heights = [0, 1, int(rng.integers(0, 1 << 32)), M32]
     bits = int(rng.integers(0, 65))
+    if edge:
+        prev[:], bits = seed
     ms, tail, ext = sha256_block.block_template(
         _u32(prev), _u32(data), torch.tensor(heights), bits)
     for i, h in enumerate(heights):
@@ -94,28 +105,33 @@ def test_block_template_matches_the_reference_header_build(seed):
                                          ext[2].tolist()]
 
 
-@pytest.mark.parametrize("seed", [4, 5])
+@pytest.mark.parametrize("seed", [4, 5, *EDGES])
 def test_winner_digest_matches_the_reference_and_header_hash(seed):
-    rng = np.random.default_rng(seed)
+    edge = isinstance(seed, tuple)
+    rng = np.random.default_rng(list(seed) if edge else seed)
     prev = rng.integers(0, 1 << 32, 8, dtype=np.uint32)
     data = rng.integers(0, 1 << 32, 8, dtype=np.uint32)
-    height = int(rng.integers(0, 1 << 32))
+    heights, bits = [int(rng.integers(0, 1 << 32))], DIFF
     nonces = [0, M32, *(int(n) for n in rng.integers(0, 1 << 32, 4))]
-    ms, tail, _ = sha256_block.block_template(_u32(prev), _u32(data),
-                                              height, DIFF)
-    got = sha256_block.winner_digest(ms.expand(len(nonces), 8),
-                                     tail.expand(len(nonces), 16),
-                                     torch.tensor(nonces))
-    ref_ms, ref_tail, _ = _ref_template(prev, data, height, DIFF)
-    ref = np.stack([np.asarray(w) for w in sha256d_words_from_midstate(
-        ref_ms, ref_tail, _bswap32(np.array(nonces, dtype=np.uint32)))], -1)
-    assert got.tolist() == ref.tolist()
-    for i, nonce in enumerate(nonces):
-        digest = ref_core.header_hash(_header(prev, data, height, DIFF,
-                                              nonce))
-        assert got[i].numpy().astype(">u4").tobytes() == digest
-        assert sha256_block.winner_digest(ms, tail, nonce).tolist() \
-            == got[i].tolist()
+    if edge:
+        (prev[:], bits), heights = seed, list(STEP_EDGE_HEIGHTS)
+    for height in heights:
+        ms, tail, _ = sha256_block.block_template(_u32(prev), _u32(data),
+                                                  height, bits)
+        got = sha256_block.winner_digest(ms.expand(len(nonces), 8),
+                                         tail.expand(len(nonces), 16),
+                                         torch.tensor(nonces))
+        ref_ms, ref_tail, _ = _ref_template(prev, data, height, bits)
+        ref = np.stack([np.asarray(w) for w in sha256d_words_from_midstate(
+            ref_ms, ref_tail, _bswap32(np.array(nonces, dtype=np.uint32)))],
+            -1)
+        assert got.tolist() == ref.tolist()
+        for i, nonce in enumerate(nonces):
+            digest = ref_core.header_hash(_header(prev, data, height, bits,
+                                                  nonce))
+            assert got[i].numpy().astype(">u4").tobytes() == digest
+            assert sha256_block.winner_digest(ms, tail, nonce).tolist() \
+                == got[i].tolist()
 
 
 def test_step_on_the_cpu_is_the_plain_step_and_checks_its_buffer():
@@ -134,6 +150,14 @@ def test_step_on_the_cpu_is_the_plain_step_and_checks_its_buffer():
     assert words[:4] == [0, M32, 0, 0]
     assert words[4:24] == ext.tolist() and words[24:32] == ms.tolist()
     assert words[32:] == tail.tolist()
+    # The repeated step times the kernel: it has no CPU path.
+    c = sha256_block.new_scratch(cpu)
+    with pytest.raises(ConfigError, match="on a CUDA device, not cpu"):
+        sha256_block.step_repeat(3, c, prev=prev, data=data[0], height=7,
+                                 difficulty_bits=DIFF)
+    with pytest.raises(ValueError, match="n must be >= 1"):
+        sha256_block.step_repeat(0, c, prev=prev)
+    assert torch.equal(c, sha256_block.new_scratch(cpu))
     # Finalize with the sentinel in the result buffer, then build on it.
     a.view(torch.uint32)[1] = M32
     nonce = torch.zeros(1, dtype=torch.uint32)
@@ -376,7 +400,10 @@ def test_fused_configuration_errors():
 
 
 _SASS_STEP = """
-        Function : _ZN12_GLOBAL__N_117block_step_kernelENS_8StepArgsE
+        Function : _ZN12_GLOBAL__N_117block_step_kernelILb1EEEvPKjS2_PjS3_S3_jjPy
+        /*0000*/                   CS2R R2, SR_CLOCKLO ;
+        /*0010*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_117block_step_kernelILb0EEEvPKjS2_PjS3_S3_jjPy
         /*0000*/                   LDC R1, c[0x0][0x28] ;
         /*0010*/                   SHF.R.W.U32.HI R5, R2, 0x7, R2 ;
         /*0020*/                   LOP3.LUT R6, R5, R3, R2, 0x96, !PT ;
@@ -398,3 +425,59 @@ def test_function_census_counts_the_whole_step_kernel():
                       "BRA": 1}
     with pytest.raises(ValueError, match="not in the disassembly"):
         sha256_cuda.function_census(_SASS_STEP, "no_such_kernel")
+
+
+_PTXAS_LOG = """
+ptxas info    : 0 bytes gmem, 336 bytes cmem[3]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117block_step_kernelILb1EEEvPKjS2_PjS3_S3_jjPy' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117block_step_kernelILb1EEEvPKjS2_PjS3_S3_jjPy
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 100 registers, used 0 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117block_step_kernelILb0EEEvPKjS2_PjS3_S3_jjPy' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117block_step_kernelILb0EEEvPKjS2_PjS3_S3_jjPy
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 412 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_the_production_step_kernel():
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+    assert sha256_cuda.ptxas_report(_PTXAS_LOG,
+                                    sha256_cuda.STEP_KERNEL_SYMBOL) == {
+        "registers": 96, "stack_bytes": 0, "spill_store_bytes": 0,
+        "spill_load_bytes": 0}
+    assert sha256_cuda.ptxas_report(_PTXAS_LOG, "block_step_kernelILb1E")[
+        "stack_bytes"] == 8
+    with pytest.raises(ValueError, match="nothing for sha256d_sweep"):
+        sha256_cuda.ptxas_report(_PTXAS_LOG, "sha256d_sweep_kernel")
+    assert "-Xptxas" in sha256_cuda.NVCC_FLAGS
+
+
+def test_step_variants_patch_the_shipped_source(monkeypatch):
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+    from mpi_blockchain_tpu_torch.tools import step_variants
+
+    source = sha256_cuda.SOURCE.read_text()
+    assert step_variants.variant_source("shipped") == source
+    sources = {name: step_variants.variant_source(name)
+               for name in step_variants.VARIANTS}
+    assert len(set(sources.values())) == len(sources)
+    # Each design choice is timed against the build without it.
+    assert "#pragma unroll 1\n  for (int c = 0" in sources["compact_1"]
+    assert "#pragma unroll 1\n  for (int t = 0" in sources["compact_2"]
+    assert 'asm volatile("griddepcontrol.wait' in source
+    assert 'asm volatile("griddepcontrol.wait' not in sources["no_pdl"]
+    assert "config.numAttrs = 0;" in sources["no_pdl"]
+    in_order = sources["loads_in_order"]
+    assert "block_step_kernel(const uint32_t* prev," in in_order
+    body = in_order[in_order.index("block_step_kernel(const"):]
+    assert body.index("*nonce_out = nonce;") \
+        < body.index("load_words(m, tail);") \
+        < body.index("load_words(dw, data);")
+    assert sources["first_shape"].count("__restrict__") \
+        == sources["loads_in_order"].count("__restrict__")
+    monkeypatch.setitem(step_variants.VARIANTS, "stale",
+                        [("no such line", "")])
+    with pytest.raises(ValueError, match="0 times, not once"):
+        step_variants.variant_source("stale")

@@ -1,6 +1,7 @@
 """The fused miner's kernels on the card: the step kernel against its
-plain version, the constant-ext sweep against the by-value sweep, a whole
-k-block call against the plain sequence, and a pinned chain.
+plain version (seeded and edge cases), its measuring entry, the
+constant-ext sweep against the by-value sweep, whole k-block calls against
+the plain sequence, and a pinned chain.
 
 Every test needs a CUDA device (``cuda`` marker) and skips without one.
 This file imports no jax, so it also runs on a machine with the card and
@@ -68,6 +69,19 @@ def test_step_kernel_matches_the_plain_step(seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", range(3))
+def test_step_kernel_matches_the_plain_step_at_the_edges(group):
+    """chip_smoke's edge cases, one difficulty (0, 24, 64) per group: every
+    prev word all-zero or all-ones, height 0 or 0xFFFFFFFF, nonce 0 or
+    0xFFFFFFFF; build, finalize-and-build and finalize, bit for bit."""
+    from chip_smoke import step_edge_cases, step_vs_plain
+
+    device = _card()
+    case = step_edge_cases(np.random.default_rng(20261019))[group]
+    assert step_vs_plain(*case, device) == (0, 0)
+
+
+@pytest.mark.cuda
 def test_constant_ext_sweep_matches_by_value_at_slice_edges():
     """The instantiation reading ext from the __constant__ symbol against
     the by-value one, full and early-exit, on chip_smoke's slice-edge
@@ -91,22 +105,48 @@ def test_constant_ext_sweep_matches_by_value_at_slice_edges():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap", [1 << 12, 1 << 32])
-def test_k_block_call_matches_the_plain_sequence(cap):
+@pytest.mark.parametrize("k", [1, 2, 6])
+def test_k_block_call_matches_the_plain_sequence(k, cap):
     """One enqueued k-block call against mine_k_plain: the same nonces
-    (the sentinel where [0, cap) holds no winner) and tip."""
+    (the sentinel where [0, cap) holds no winner) and tip. Every step after
+    the first follows a sweep, so this covers its programmatic dependent
+    launch."""
     device = _card()
     rng = np.random.default_rng(7)
     prev = rng.integers(0, 1 << 32, 8, dtype=np.uint32)
-    data = rng.integers(0, 1 << 32, (6, 8), dtype=np.uint32)
+    data = rng.integers(0, 1 << 32, (k, 8), dtype=np.uint32)
     launches, steps = sha256_cuda.launches, sha256_block.step_launches
     nonces, tip = sha256_block.mine_k(_u32(prev, device), _u32(data, device),
                                       41, 12, cap)
-    assert sha256_cuda.launches - launches == 6
-    assert sha256_block.step_launches - steps == 7
+    assert sha256_cuda.launches - launches == k
+    assert sha256_block.step_launches - steps == k + 1
     want = sha256_block.mine_k_plain(_u32(prev, "cpu"), _u32(data, "cpu"),
                                      41, 12, cap)
     assert nonces.cpu().tolist() == want[0].tolist()
     assert tip.cpu().tolist() == want[1].tolist()
+
+
+@pytest.mark.cuda
+def test_step_repeat_and_its_clock_stamps():
+    """The measuring entry: n steps back to back leave what one step
+    leaves, and the stamped build writes rising SM clocks per launch."""
+    device = _card()
+    rng = np.random.default_rng(8)
+    prev = _u32(rng.integers(0, 1 << 32, 8, dtype=np.uint32), device)
+    data = _u32(rng.integers(0, 1 << 32, 8, dtype=np.uint32), device)
+    one, many = (sha256_block.new_scratch(device) for _ in range(2))
+    sha256_block.step(one, prev=prev, data=data, height=5,
+                      difficulty_bits=20)
+    stamps = torch.zeros(6, dtype=torch.int64, device=device)
+    steps = sha256_block.step_launches
+    sha256_block.step_repeat(3, many, prev=prev, data=data, height=5,
+                             difficulty_bits=20, stamps=stamps)
+    assert sha256_block.step_launches - steps == 3
+    assert torch.equal(one, many)
+    t = stamps.tolist()
+    assert all(0 < t[2 * i + 1] - t[2 * i] < 1 << 24 for i in range(3))
+    with pytest.raises(ValueError, match="stamps"):
+        sha256_block.step_repeat(2, many, prev=prev, stamps=stamps)
 
 
 @pytest.mark.cuda

@@ -48,18 +48,37 @@ then:
    run with CUDA events around each sweep and after each step, the sweeps'
    share of the wall, the per-block device gaps within a call
    (``block_gaps``: median, 90th percentile, max), split into the step and
-   the symbol copy, and the rest of the wall.
+   the symbol copy, and the rest of the wall;
+6. drives the resilience layer on the card: (a) the pipelined ``Miner`` at
+   d24/n1000 behind ``ResilientBackend`` (its ``search_async`` launches at
+   once and reads back when the driver consumes the sweep) and on the raw
+   backend (a synchronous ``search_async``), in turns, with the wall, the
+   sweeps' CUDA-event time, the kernel share and the host time per block
+   of each; (b) a plan that
+   kills every ``backend.cuda.dispatch`` (d8/n2/b11) steps down to ``cpu``
+   with rc 0 and the ``--backend cpu`` oracle's tip; (c) a ``corrupt``
+   winner at the first dispatch is retried once and the run stays on
+   ``cuda:cuda`` with the pinned d20/n10 tip; (d) a ``mine`` subprocess with
+   no ``nvcc`` exits 2 with a JSON error naming it, with no retry and no
+   step-down in its metrics; (e) a d20 ``mine --checkpoint-every 1`` on the
+   card is SIGKILLed, resumed to 10 blocks and verified, at the pinned tip.
+
+Every ``mine`` of phases 3 and 6 goes through the wrapper; the smoke fails
+on any retry or step-down that its plan did not cause.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line; with no CUDA device it fails at once. It takes about
-two and a half minutes on one NVIDIA H100, the builds included.
+three minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -103,6 +122,10 @@ TIMED_DBITS = 24
 # progress evenly (PERF.md), and a winner in a slow warp's slice is
 # reported late.
 OVERSHOOT_LAUNCHES = 101
+# Phase 6 (a): the d24/n1000 Miner runs, in this order. The other forms of
+# search_async are measured by ``tools/dispatch_variants.py``.
+MINER_TURNS = ("wrapped", "raw", "raw", "wrapped")
+REPO_ROOT = str(pathlib.Path(__file__).resolve().parent)
 
 
 class SmokeFailure(Exception):
@@ -159,6 +182,55 @@ class ClockSampler:
                 "sm_clock_mhz_median": clocks[len(clocks) // 2],
                 "sm_clock_mhz_max": clocks[-1],
                 "power_w_max": max(power)}
+
+
+def fault_plan(site: str, kind: str, call: int = 0, times: int = 1,
+               seconds: float = 0.05) -> dict:
+    """A fault plan of one fault, as ``mine --fault-plan`` reads it."""
+    return {"version": 1, "faults": [{"site": site, "kind": kind,
+                                      "call": call, "times": times,
+                                      "seconds": seconds}]}
+
+
+def without_nvcc(environ: dict, missing: str) -> dict:
+    """``environ`` with ``CUDA_HOME`` at the directory ``missing`` (which
+    does not exist) and every ``PATH`` entry that holds an ``nvcc`` taken
+    out, so that ``sha256_cuda.find_nvcc`` finds none."""
+    path = [p for p in environ.get("PATH", "").split(os.pathsep)
+            if p and not (pathlib.Path(p) / "nvcc").exists()]
+    return {**environ, "CUDA_HOME": missing, "CUDA_PATH": missing,
+            "PATH": os.pathsep.join(path)}
+
+
+def metric_total(prometheus: str, name: str) -> float:
+    """The sum of every sample of metric ``name`` in Prometheus text."""
+    total = 0.0
+    for line in prometheus.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        key, _, value = line.rpartition(" ")
+        if key.split("{")[0] == name:
+            total += float(value)
+    return total
+
+
+def check_no_step_down(summary: dict, rung: str, what: str) -> None:
+    """Fails unless a mine summary reports the rung ``rung`` and no
+    step-down."""
+    check(summary.get("rung") == rung and "degraded" not in summary,
+          f"{what}: rung {summary.get('rung')}, degraded "
+          f"{summary.get('degraded_to')}, not {rung} without a step-down")
+
+
+def run_cli(argv: list[str]) -> tuple[int, dict]:
+    """The port's CLI in this process: (rc, the last JSON line)."""
+    from mpi_blockchain_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    return rc, (json.loads(lines[-1]) if lines else {})
 
 
 def random_header(rng) -> bytes:
@@ -290,31 +362,81 @@ def phase_backend(rng, device):
         f"cpu_search")
 
 
-def phase_tips(device):
-    """Mines the pinned chains; returns the d24/n1000 run's numbers."""
+def mine_timed(miner) -> dict:
+    """Mines ``miner``'s chain with CUDA events around every sweep launch
+    and its CUDA backend's searches counted (each starts with the
+    backend's ``launch``, whether ``search`` or the resilient wrapper
+    calls it); returns wall, sweep time, launches, searches and the card's
+    clocks during the run."""
     import torch
 
-    from mpi_blockchain_tpu_torch import cli, core
-    from mpi_blockchain_tpu_torch.backend.cuda import CudaBackend
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+    backend = getattr(miner.backend, "active_backend", miner.backend)
+    searches, events = 0, []
+    start, launch = backend.launch, sha256_cuda.launch
+
+    def counted_start(*args, **kwargs):
+        nonlocal searches
+        searches += 1
+        return start(*args, **kwargs)
+
+    def timed_launch(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        launch(*args, **kwargs)
+        ev[1].record()
+        events.append(ev)
+
+    backend.launch = counted_start
+    sha256_cuda.launch = timed_launch
+    sha256_cuda.launches = 0
+    try:
+        torch.cuda.synchronize()
+        with ClockSampler() as clocks:
+            t0 = time.perf_counter()
+            miner.mine_chain()
+            wall = time.perf_counter() - t0
+    finally:
+        sha256_cuda.launch = launch
+        del backend.launch
+    launches = sha256_cuda.launches
+    torch.cuda.synchronize()
+    kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    return {"wall_s": wall, "kernel_s": kernel_s, "launches": launches,
+            "searches": searches, "clocks": clocks.summary(),
+            "tip_hash": miner.node.tip_hash.hex()}
+
+
+def phase_tips(device):
+    """Mines the pinned chains through the resilient backend; returns the
+    d24/n1000 run's numbers."""
+    from mpi_blockchain_tpu_torch import core, telemetry
     from mpi_blockchain_tpu_torch.config import MinerConfig
     from mpi_blockchain_tpu_torch.models.miner import Miner
     from mpi_blockchain_tpu_torch.ops import sha256_cuda
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "d20.bin")
+        telemetry.reset()
         sha256_cuda.launches = 0
-        rc = cli.main(["mine", "--difficulty", "20", "--blocks", "10",
-                       "--batch-pow2", "20", "--out", out])
+        rc, summary = run_cli(["mine", "--difficulty", "20", "--blocks",
+                               "10", "--batch-pow2", "20", "--out", out])
         launches = sha256_cuda.launches
-        check(rc == 0, f"mine d20/n10/b20 exited {rc}")
+        check(rc == 0, f"mine d20/n10/b20 exited {rc}: {summary}")
         node = core.Node(20)
         with open(out, "rb") as f:
             check(node.load(f.read()), "the d20 chain file does not verify")
     tip = node.tip_hash.hex()
     check(tip == PINNED_TIPS[(20, 10, 20)], f"d20/n10/b20 tip {tip}")
     check(launches == 10, f"d20/n10 made {launches} launches, not 10")
+    check_no_step_down(summary, "cuda:cuda", "mine d20/n10")
+    reg = telemetry.default_registry()
+    check(reg.total("retries_total") == 0, "mine d20/n10 retried")
     log(f"phase 3 d20/n10/b20 via the CLI: tip {tip} matches, "
-        f"{launches} launches")
+        f"{launches} launches, rung {summary['rung']}, no retry or "
+        f"step-down")
 
     results = {}
     for (d, blocks, pow2), pinned in PINNED_TIPS.items():
@@ -323,59 +445,37 @@ def phase_tips(device):
         cfg = MinerConfig(difficulty_bits=d, n_blocks=blocks,
                           batch_pow2=pow2, backend="cuda", kernel="cuda",
                           device="cuda")
-        backend = CudaBackend(batch_pow2=pow2, kernel="cuda", device=device)
-        miner = Miner(cfg, backend=backend, pipeline=True)
-        searches, events = 0, []
-        search, launch = backend.search, sha256_cuda.launch
-
-        def counted_search(*args, **kwargs):
-            nonlocal searches
-            searches += 1
-            return search(*args, **kwargs)
-
-        def timed_launch(*args, **kwargs):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            launch(*args, **kwargs)
-            ev[1].record()
-            events.append(ev)
-
-        backend.search = counted_search
-        sha256_cuda.launch = timed_launch
-        sha256_cuda.launches = 0
-        try:
-            with ClockSampler() as clocks:
-                t0 = time.perf_counter()
-                miner.mine_chain()
-                wall = time.perf_counter() - t0
-        finally:
-            sha256_cuda.launch = launch
-        launches = sha256_cuda.launches
-        torch.cuda.synchronize()
-        kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        telemetry.reset()
+        miner = Miner(cfg, pipeline=True)
+        run = mine_timed(miner)
+        wall, kernel_s = run["wall_s"], run["kernel_s"]
+        launches, searches = run["launches"], run["searches"]
         tip = miner.node.tip_hash.hex()
         check(tip == pinned, f"d{d}/n{blocks} tip {tip} != pinned {pinned}")
         check(launches > 0 and launches == searches,
               f"d{d}/n{blocks}: {launches} launches for {searches} "
               f"searches")
+        check(miner.backend.rung == "cuda:cuda"
+              and miner.backend.degradations == []
+              and telemetry.default_registry().total("retries_total") == 0,
+              f"d{d}/n{blocks}: rung {miner.backend.rung}, degradations "
+              f"{miner.backend.degradations}")
         # Each block's window starts at nonce 0, so the kernel hashed at
         # least winner + 1 nonces for it.
         least_work = sum(r.nonce + 1 for r in miner.records)
         results[(d, blocks)] = {
-            "wall_s": wall, "launches": launches, "searches": searches,
-            "hashes_tried": miner.total_hashes(),
+            **run, "hashes_tried": miner.total_hashes(),
             "hashes_per_s": miner.total_hashes() / wall,
-            "kernel_s": kernel_s, "least_nonces": least_work,
-            "clocks": clocks.summary()}
-        log(f"phase 3 d{d}/n{blocks}/b{pow2} via Miner (pipelined): tip "
-            f"{tip} matches; wall {wall:.6f} s, "
+            "least_nonces": least_work}
+        log(f"phase 3 d{d}/n{blocks}/b{pow2} via Miner (pipelined, "
+            f"rung {miner.backend.rung}): tip {tip} matches; wall "
+            f"{wall:.6f} s, "
             f"{miner.total_hashes() / wall:.6g} hashes/s (reference "
             f"accounting), {launches} launches for {searches} searches; "
             f"kernel {kernel_s:.6f} s ({kernel_s / wall:.4f} of wall), "
             f"least nonces hashed {least_work} "
             f"({least_work / kernel_s / 1e9:.4f} GH/s in the kernel); "
-            f"card during the run {clocks.summary()}")
+            f"card during the run {run['clocks']}")
     return results[(24, 1000)]
 
 
@@ -948,6 +1048,8 @@ def phase_fused(device, miner_chain: dict) -> dict:
                   f"{fm.host_waits} host waits for {calls} calls")
             check(syncs == 0, f"fused d{d}/n{blocks}: PyTorch flagged "
                   f"{syncs} synchronizing operations")
+            check(fm.recovery is None or fm.recovery.degradations == [],
+                  f"fused d{d}/n{blocks}: the recovery search stepped down")
             if timed:
                 times = [[origin.elapsed_time(ev) for ev in evs]
                          for evs in call_events]
@@ -989,6 +1091,143 @@ def phase_fused(device, miner_chain: dict) -> dict:
     return results
 
 
+def phase_resilience(device) -> dict:
+    """Phase 6: the resilience layer on the card, (a) to (e) as the module
+    docstring says. Returns the numbers."""
+    import statistics
+
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.backend import backend_from_config
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+    from mpi_blockchain_tpu_torch.resilience.__main__ import (
+        smoke_degradation, smoke_kill_resume)
+
+    out: dict = {}
+    # (a) wrapped (launch at once, read back when consumed) and raw (the
+    # synchronous search_async), in turns.
+    cfg = MinerConfig(difficulty_bits=24, n_blocks=1000, batch_pow2=24,
+                      backend="cuda", kernel="cuda", device="cuda")
+    pinned = PINNED_TIPS[(24, 1000, 24)]
+    runs: dict[str, list] = {turn: [] for turn in MINER_TURNS}
+    for turn in MINER_TURNS:
+        telemetry.reset()
+        backend = backend_from_config(cfg, resilient=(turn != "raw"))
+        run = mine_timed(Miner(cfg, backend=backend, pipeline=True))
+        runs[turn].append(run)
+        check(run["launches"] == run["searches"] == 1000,
+              f"6a {turn}: {run['launches']} launches, {run['searches']} "
+              f"searches")
+        if turn != "raw":
+            check(backend.rung == "cuda:cuda" and backend.degradations == []
+                  and telemetry.default_registry().total("retries_total")
+                  == 0, f"6a wrapped: rung {backend.rung}, degradations "
+                  f"{backend.degradations}")
+    for turn, rs in runs.items():
+        for r in rs:
+            check(r["tip_hash"] == pinned, f"6a {turn}: tip {r['tip_hash']}")
+        wall = statistics.median(r["wall_s"] for r in rs)
+        kernel = statistics.median(r["kernel_s"] for r in rs)
+        out[f"miner_d24_n1000_{turn}"] = {
+            "wall_s": [r["wall_s"] for r in rs],
+            "kernel_s": [r["kernel_s"] for r in rs],
+            "kernel_share": [r["kernel_s"] / r["wall_s"] for r in rs],
+            "host_ms_per_block": [host_ms_per_block(r, 1000) for r in rs],
+            "clocks": [r["clocks"] for r in rs]}
+        log(f"phase 6a d24/n1000 pipelined Miner, {turn}: walls "
+            f"{[round(r['wall_s'], 6) for r in rs]} s (median {wall:.6f}), "
+            f"sweeps {[round(r['kernel_s'], 6) for r in rs]} s, kernel "
+            f"share {[round(r['kernel_s'] / r['wall_s'], 4) for r in rs]}, "
+            f"host time a block "
+            f"{[round(host_ms_per_block(r, 1000), 4) for r in rs]} ms "
+            f"(median wall minus median sweeps: "
+            f"{(wall - kernel) / 1000 * 1e3:.4f} ms)")
+
+    with tempfile.TemporaryDirectory() as td:
+        tmp = pathlib.Path(td)
+        # (b) every CUDA dispatch killed: cuda:cuda -> cuda:torch -> cpu.
+        telemetry.reset()
+        got = smoke_degradation(tmp, device=device.type)
+        steps = telemetry.default_registry().total(
+            "backend_degradations_total")
+        check(steps == 2, f"6b: {steps} step-downs, not 2")
+        out["step_down"] = {"rung": got["degraded"]["rung"],
+                            "step_downs": steps,
+                            "tip_hash": got["degraded"]["tip_hash"]}
+        log(f"phase 6b dead CUDA dispatch (d8/n2/b11): rc 0, {steps} "
+            f"step-downs to {got['degraded']['degraded_to']}, tip "
+            f"{got['degraded']['tip_hash']} == the --backend cpu oracle's")
+
+        # (c) a corrupt winner at the first dispatch: one retry, same rung.
+        plan = tmp / "corrupt.json"
+        plan.write_text(json.dumps(fault_plan("backend.cuda.dispatch",
+                                              "corrupt")))
+        telemetry.reset()
+        rc, summary = run_cli(["mine", "--difficulty", "20", "--blocks",
+                               "10", "--batch-pow2", "20", "--fault-plan",
+                               str(plan)])
+        reg = telemetry.default_registry()
+        retries, corrupt = reg.total("retries_total"), \
+            reg.total("corrupt_results_total")
+        check(rc == 0 and summary.get("tip_hash") == PINNED_TIPS[
+            (20, 10, 20)], f"6c: rc {rc}, summary {summary}")
+        check_no_step_down(summary, "cuda:cuda", "6c")
+        check(retries == 1 and corrupt == 1,
+              f"6c: {retries} retries, {corrupt} corrupt results, not 1")
+        out["corrupt_retried"] = {"retries": retries, "rung":
+                                  summary["rung"]}
+        log(f"phase 6c corrupt winner at call 0 (d20/n10): {corrupt} caught "
+            f"by re-validation, {retries} retry, rung {summary['rung']}, "
+            f"tip {summary['tip_hash']} matches the pin")
+
+        # (d) no nvcc: the top rung's kernel cannot build.
+        metrics = tmp / "no_nvcc.prom"
+        env = without_nvcc(dict(os.environ), str(tmp / "no_cuda_home"))
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p)
+        proc = subprocess.run(
+            [sys.executable, "-m", "mpi_blockchain_tpu_torch", "mine",
+             "--difficulty", "8", "--blocks", "1", "--metrics-dump",
+             str(metrics)], capture_output=True, text=True, env=env,
+            cwd=str(tmp), timeout=300)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        err = json.loads(lines[-1]) if lines else {}
+        text = metrics.read_text() if metrics.exists() else ""
+        retries = metric_total(text, "retries_total")
+        steps = metric_total(text, "backend_degradations_total")
+        check(proc.returncode == 2 and err.get("kind") == "kernel"
+              and "nvcc" in err.get("error", ""),
+              f"6d: rc {proc.returncode}, stdout {proc.stdout[-400:]!r}, "
+              f"stderr {proc.stderr[-800:]!r}")
+        check(metrics.exists() and retries == 0 and steps == 0,
+              f"6d: metrics dump {metrics.exists()}, {retries} retries, "
+              f"{steps} step-downs")
+        out["no_nvcc"] = {"rc": proc.returncode, "retries": retries,
+                          "step_downs": steps}
+        log(f"phase 6d no nvcc: rc {proc.returncode}, {err}, {retries:.0f} "
+            f"retries, {steps:.0f} step-downs")
+
+        # (e) SIGKILL mid-run, resume, verify.
+        kill_dir = tmp / "kill"
+        kill_dir.mkdir()
+        got = smoke_kill_resume(kill_dir, device=device.type,
+                                difficulty=20, blocks=10)
+        check(got["tip_hash"] == PINNED_TIPS[(20, 10, 20)],
+              f"6e: resumed tip {got['tip_hash']}")
+        out["kill_resume"] = got
+        log(f"phase 6e d20 mine --checkpoint-every 1 SIGKILLed after "
+            f"{got['mined_before_kill']} blocks (checkpoint at height "
+            f"{got['checkpoint_height']}), resumed to {got['resumed_to']}, "
+            f"verified, tip matches the pin; torn tail truncated to "
+            f"{got['torn_truncated_to']} and re-mined")
+    return out
+
+
+def host_ms_per_block(run: dict, blocks: int) -> float:
+    """The wall that is not sweep time, per block, in ms."""
+    return (run["wall_s"] - run["kernel_s"]) / blocks * 1e3
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1026,8 +1265,9 @@ def main() -> int:
         step = phase_step(rng, device, timing["sm_clock_mhz"])
         symbol_mismatches = phase_ext_symbol(device)
         fused = phase_fused(device, chain)
+        resilience = phase_resilience(device)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
-            ValueError) as e:
+            ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     f24, f16 = fused[(24, 1000)], fused[(16, 30)]
@@ -1045,7 +1285,8 @@ def main() -> int:
         "d24_n1000_kernel_s": chain["kernel_s"],
         "d24_n1000_kernel_share": chain["kernel_s"] / chain["wall_s"],
         "d24_n1000_least_nonces": chain["least_nonces"],
-        "fused_d24_n1000": f24, "fused_d16_n30": f16}, {
+        "fused_d24_n1000": f24, "fused_d16_n30": f16,
+        "resilience": resilience}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",

@@ -2,14 +2,17 @@
 
 With n_ranks > 1 it splits the search space the way ``mpirun -np N`` ranks
 did, in interleaved contiguous rounds, which keeps the lowest-nonce winner
-rule exact.
+rule exact. The ``backend.cpu.search`` fault site sits before the sweep:
+``raise`` / ``hang`` fire there, ``corrupt`` / ``partial`` damage the
+result.
 """
 from __future__ import annotations
 
 import concurrent.futures
 
 from .. import core
-from . import MinerBackend, SearchResult, register
+from ..resilience import injection
+from . import MinerBackend, SearchResult, _faulted_result, register
 
 
 @register("cpu")
@@ -22,14 +25,20 @@ class CpuBackend(MinerBackend):
 
     def search(self, header80: bytes, difficulty_bits: int,
                start_nonce: int = 0, max_count: int = 1 << 32) -> SearchResult:
+        fault = injection.check("backend.cpu.search",
+                                difficulty=difficulty_bits)
         if self.n_ranks == 1:
             nonce, tried = core.cpu_search(header80, start_nonce,
                                            max_count, difficulty_bits)
             digest = (core.header_hash(core.set_nonce(header80, nonce))
                       if nonce is not None else None)
-            return SearchResult(nonce, digest, tried)
-        return self._search_ranks(header80, difficulty_bits, start_nonce,
-                                  max_count)
+            res = SearchResult(nonce, digest, tried)
+        else:
+            res = self._search_ranks(header80, difficulty_bits, start_nonce,
+                                     max_count)
+        if fault is not None:
+            res = _faulted_result(fault, res, start_nonce)
+        return res
 
     def _search_ranks(self, header80: bytes, difficulty_bits: int,
                       start_nonce: int, max_count: int) -> SearchResult:

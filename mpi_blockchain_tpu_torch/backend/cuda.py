@@ -12,22 +12,35 @@ goes to the CPU. The only host sync is the 8-byte result read-back.
 ``hashes_tried`` is not what the kernel did but what the reference counts
 for the same search and round size (``reference_hashes_tried``), so a
 ``SearchResult`` equals ``TpuBackend``'s field for field.
+
+The ``backend.cuda.dispatch`` fault site sits before the launch:
+``raise`` / ``hang`` fire before any device work, ``corrupt`` / ``partial``
+damage the finished result (``backend._faulted_result``). With the CUDA
+kernel the library is built and bound when the backend is constructed, so
+a kernel that does not build raises ``KernelError`` there, while the
+resilience ladder builds its top rung.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import core
 from ..config import ConfigError
 from ..ops import extend_midstate, select_kernel
-from . import MinerBackend, SearchResult, register
+from ..resilience import injection
+from . import MinerBackend, SearchResult, _faulted_result, register
 
 NONCE_SPACE = 1 << 32
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
     """The torch device a run uses. A CUDA device must exist: with no card
-    the caller has to ask for the CPU explicitly."""
+    the caller has to ask for the CPU explicitly. ``"cuda"`` resolves to
+    the calling thread's current device by index, so a search that runs on
+    another thread (whose current device is its own) still uses this
+    one."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise ConfigError(
@@ -35,6 +48,8 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ConfigError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -76,8 +91,16 @@ class CudaBackend(MinerBackend):
         self.effective_kernel: str | None = None
         self._searchers: dict[int, object] = {}   # difficulty -> sweep fn
         # Resolve the kernel now, so a bad kernel/device pair fails here
-        # and not at the first block.
+        # and not at the first block, and build the kernel library, so a
+        # kernel that does not build fails here too (KernelError).
         self._searcher(0)
+        if self.effective_kernel == "cuda":
+            from ..ops import sha256_cuda
+            sha256_cuda.library()
+
+    @property
+    def hand_written_kernel(self) -> bool:     # type: ignore[override]
+        return self.effective_kernel == "cuda"
 
     def _searcher(self, difficulty_bits: int):
         fn = self._searchers.get(difficulty_bits)
@@ -87,19 +110,50 @@ class CudaBackend(MinerBackend):
             self._searchers[difficulty_bits] = fn
         return fn
 
+    def launch(self, header80: bytes, difficulty_bits: int,
+               start_nonce: int = 0, max_count: int = NONCE_SPACE):
+        """Starts the search and returns the function that finishes it.
+        With the CUDA kernel the sweep is on the device when this returns
+        and the finish waits for its 8-byte result; with the plain version
+        the finish does all the work."""
+        # Fault-injection hook: raise/hang fire before any device work,
+        # corrupt/partial damage the finished result.
+        fault = injection.check("backend.cuda.dispatch",
+                                difficulty=difficulty_bits)
+        end = min(start_nonce + max_count, NONCE_SPACE)
+        if start_nonce >= end:
+            read = None
+        else:
+            # Per-template precompute on the host, once per search.
+            ext = extend_midstate(*core.header_midstate(header80))
+            if self.effective_kernel == "cuda":
+                from ..ops import sha256_cuda
+                out = sha256_cuda.sweep_launch(
+                    ext, start_nonce, end - start_nonce, difficulty_bits,
+                    device=self.device, early_exit=True)
+                read = functools.partial(sha256_cuda.read_result, out)
+            else:
+                read = functools.partial(
+                    self._searcher(difficulty_bits), ext, start_nonce,
+                    end - start_nonce, early_exit=True)
+
+        def finish() -> SearchResult:
+            res = (SearchResult(None, None, 0) if read is None
+                   else self._result(header80, start_nonce, end, *read()))
+            return res if fault is None else \
+                _faulted_result(fault, res, start_nonce)
+        return finish
+
     def search(self, header80: bytes, difficulty_bits: int,
                start_nonce: int = 0, max_count: int = NONCE_SPACE
                ) -> SearchResult:
-        end = min(start_nonce + max_count, NONCE_SPACE)
-        if start_nonce >= end:
-            return SearchResult(None, None, 0)
-        # Per-template precompute on the host, once per search.
-        ext = extend_midstate(*core.header_midstate(header80))
-        count, best = self._searcher(difficulty_bits)(
-            ext, start_nonce, end - start_nonce, early_exit=True)
+        return self.launch(header80, difficulty_bits, start_nonce,
+                           max_count)()
+
+    def _result(self, header80: bytes, start: int, end: int, count: int,
+                best: int) -> SearchResult:
         winner = best if count > 0 else None
-        tried = reference_hashes_tried(start_nonce, end, self.batch_size,
-                                       winner)
+        tried = reference_hashes_tried(start, end, self.batch_size, winner)
         if winner is None:
             return SearchResult(None, None, tried)
         return SearchResult(winner,

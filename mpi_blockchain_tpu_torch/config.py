@@ -20,6 +20,14 @@ class ConfigError(ValueError):
     their tracebacks."""
 
 
+class KernelError(RuntimeError):
+    """A native library failed to build, or a hand-written kernel failed to
+    launch (no ``nvcc``, a compiler error, a CUDA error code). Like
+    ``ConfigError`` it is never retried and never stepped over by the
+    resilience ladder: a kernel that fails must fail the run loudly (CLI
+    rc 2), not hand it to a slower rung."""
+
+
 def extend_payload(data: bytes, extra_nonce: int) -> bytes:
     """The nonce-exhaustion rollover rule shared by every mining driver.
 

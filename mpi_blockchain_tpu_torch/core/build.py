@@ -9,6 +9,8 @@ Both libraries land in ``mpi_blockchain_tpu_torch/build/`` (git-ignored):
 A library is rebuilt when it is missing or older than one of its sources.
 Each build writes to a private temporary name and is renamed into place,
 so processes that build at the same time never load a half-written file.
+A build that fails raises ``KernelError``. ``ensure_built`` is the
+``native.load`` fault site.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import os
 import pathlib
 import subprocess
 import threading
+
+from ..config import KernelError
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG_DIR / "build"
@@ -34,7 +38,7 @@ def build_shared(command: list[str], sources: list[pathlib.Path],
                  ) -> pathlib.Path:
     """Runs ``command -o out sources...`` unless ``out`` is newer than
     every source and header, and keeps the compiler's output of a build
-    that succeeds in ``build_log(out)``. Raises RuntimeError with the
+    that succeeds in ``build_log(out)``. Raises KernelError with the
     compiler's output when the build fails."""
     if out.exists():
         built = out.stat().st_mtime
@@ -48,8 +52,8 @@ def build_shared(command: list[str], sources: list[pathlib.Path],
                                *(str(s) for s in sources)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building {out.name} failed "
-                               f"({' '.join(command)}):\n{proc.stderr}")
+            raise KernelError(f"building {out.name} failed "
+                              f"({' '.join(command)}):\n{proc.stderr}")
         build_log(out).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
@@ -59,6 +63,9 @@ def build_shared(command: list[str], sources: list[pathlib.Path],
 
 def ensure_built() -> pathlib.Path:
     """Compiles ``libchaincore.so`` if missing or out of date."""
+    from ..resilience import injection
+
+    injection.check("native.load", artifact="libchaincore")
     return build_shared(
         ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"],
         [CSRC / s for s in _CORE_SOURCES],

@@ -22,10 +22,10 @@ back through a pinned host buffer and a CUDA event, so the host validates
 batch i while later calls run. A k-block call synchronizes nothing; the
 host waits once per call, for its nonces.
 
-The reference's telemetry, block tracing and profiler calls are not
-ported, as in ``models/miner.py``, nor its mesh (one device here). The
-recovery search is the port's raw ``backend_from_config``: the reference's
-``ResilientBackend`` ladder is not ported yet.
+The reference's block tracing and profiler calls are not ported, as in
+``models/miner.py``, nor its mesh (one device here). The recovery search
+goes through ``backend_from_config``, the resilient backend: retries,
+host re-validation and the step-down ladder, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ from ..backend import backend_from_config
 from ..backend.cuda import resolve_device
 from ..config import MAX_EXTRA_NONCE, ConfigError, MinerConfig, \
     extend_payload
-from ..ops import resolve_kernel, sha256_block
+from ..ops import resolve_kernel, sha256_block, sha256_cuda
 
 _LOGGER = logging.getLogger("mpi_blockchain_tpu_torch")
 NONCE_SPACE = 1 << 32
@@ -111,8 +111,11 @@ class _Readback:
         self.event.record(torch.cuda.current_stream(nonces.device))
 
     def wait(self) -> list[int]:
+        """The nonces; a CUDA error reported at the wait (a kernel of the
+        call that faulted) raises ``KernelError``."""
         if self.event is not None:
-            self.event.synchronize()
+            with sha256_cuda.kernel_errors("the fused call's read-back"):
+                self.event.synchronize()
         return self.host.tolist()
 
 
@@ -176,7 +179,6 @@ class FusedMiner:
         nothing."""
         self._fn(k if k is not None else self.blocks_per_call)
         if self.effective_kernel == "cuda":
-            from ..ops import sha256_cuda
             sha256_cuda.occupancy(self.config.difficulty_bits, self.device,
                                   ext_from_symbol=True)
 
@@ -287,6 +289,12 @@ class FusedMiner:
     def _recovery_backend(self):
         if self._recovery is None:
             self._recovery = backend_from_config(self.config)
+        return self._recovery
+
+    @property
+    def recovery(self):
+        """The rollover search's backend, or None if no block has needed
+        it yet."""
         return self._recovery
 
     def chain_hashes(self) -> list[str]:

@@ -20,8 +20,12 @@ re-validates the speculated candidate and window set against the C++ node
 (a mismatch discards and re-issues). ``MPIBT_PIPELINE=0`` (or
 ``pipeline=False``) selects the sequential oracle.
 
-The reference's telemetry, block tracing, pipeline profiler and heartbeat
-calls are not ported in this slice.
+The default backend is ``backend_from_config``'s ``ResilientBackend``,
+whose ``search_async`` puts each sweep on the card before it returns and
+reads it back when the driver consumes it, so the host's validation and
+append of block N overlap the sweep for block N + 1.
+Each appended block sets the ``miner_heartbeat`` gauge to the height. The
+reference's block tracing and pipeline profiler are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,12 +41,10 @@ from typing import Callable
 from .. import core
 from ..backend import MinerBackend, backend_from_config
 from ..config import MAX_EXTRA_NONCE, MinerConfig, extend_payload
+from ..telemetry import heartbeat
+from ..telemetry.events import emit_event
 
 _LOGGER = logging.getLogger("mpi_blockchain_tpu_torch")
-
-#: Budget (seconds) for ONE in-flight dispatch at the pipelined consume
-#: point: "the dispatch is gone", not "the sweep is slow".
-DISPATCH_TIMEOUT_S = 900.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +99,14 @@ class _SweepDispatch:
 
 def _drain_discarded(fut: concurrent.futures.Future) -> None:
     """Done-callback for a discarded dispatch that had already reached the
-    backend: its result is dropped, but a failure is still logged."""
+    backend: its result is dropped, but a failure is an event a
+    post-mortem can see."""
     if fut.cancelled():
         return
     exc = fut.exception()
     if exc is not None:
-        _LOGGER.warning("discarded speculative dispatch failed: %s: %s",
-                     type(exc).__name__, exc)
+        emit_event({"event": "speculative_dispatch_failed",
+                    "error": f"{type(exc).__name__}: {exc}"})
 
 
 class Miner:
@@ -191,6 +194,7 @@ class Miner:
     def _finalize_block(self, rec: BlockRecord) -> None:
         """Post-append accounting shared by both drivers."""
         self.records.append(rec)
+        heartbeat("miner_heartbeat").set(self.node.height)
         self._log({"event": "block_mined", "backend": self.backend.name,
                    **dataclasses.asdict(rec)})
 
@@ -225,19 +229,12 @@ class Miner:
             max_count=w_end - w_start)
         return d
 
-    def _consume(self, d: _SweepDispatch):
-        """Blocks on one dispatch's result (strictly in issue order, the
-        lowest-nonce rule), bounded by ``MPIBT_DISPATCH_TIMEOUT``."""
-        try:
-            return d.future.result(timeout=DISPATCH_TIMEOUT_S)
-        except concurrent.futures.TimeoutError:
-            if d.future.done():
-                raise           # the sweep itself raised a TimeoutError
-            raise RuntimeError(
-                f"dispatch wedged: sweep for height {d.height} (template "
-                f"{d.template}, window {d.window_index}) returned nothing "
-                f"within {DISPATCH_TIMEOUT_S}s (MPIBT_DISPATCH_TIMEOUT)"
-            ) from None
+    @staticmethod
+    def _consume(d: _SweepDispatch):
+        """Blocks on one dispatch's result, strictly in issue order (the
+        lowest-nonce rule). Nothing bounds the wait: the resilient
+        backend's future reads the sweep back on this thread."""
+        return d.future.result()
 
     @staticmethod
     def _discard_speculative(pending) -> None:

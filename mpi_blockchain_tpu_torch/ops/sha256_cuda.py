@@ -12,7 +12,9 @@ the fused miner's loop does (``ext_symbol_user``).
 function's work: the ALU-only instructions of the compiled loop
 (``loop_census``) and the adds of the source (``source_adds``);
 ``function_census`` and ``ptxas_report`` give a kernel's compiled size and
-its registers, stack and spills.
+its registers, stack and spills. A build that fails (no ``nvcc``, a
+compiler error), a launch that fails and a CUDA error reported at the
+result's read-back raise ``KernelError``.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import threading
 import numpy as np
 import torch
 
-from ..config import ConfigError
+from ..config import ConfigError, KernelError
 from ..core.build import BUILD_DIR, build_log, build_shared
 from . import sha256_sched, sha256_torch
 
@@ -70,7 +72,7 @@ def build() -> pathlib.Path:
     """Compiles the kernel library if it is missing or out of date."""
     nvcc = find_nvcc()
     if nvcc is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (looked in $CUDA_HOME/bin, PyTorch's CUDA_HOME "
             "and PATH): the CUDA sweep kernel cannot be built")
     return build_shared([nvcc, *NVCC_FLAGS], [SOURCE], [],
@@ -120,9 +122,39 @@ def _lib() -> ctypes.CDLL:
     return bind(build())
 
 
-def cuda_error(what: str, err: int) -> RuntimeError:
-    return RuntimeError(f"{what} failed: CUDA error {err} "
+def library() -> ctypes.CDLL:
+    """The kernel library, built and bound at the first call; raises
+    KernelError when it cannot be built."""
+    return _lib()
+
+
+def cuda_error(what: str, err: int) -> KernelError:
+    return KernelError(f"{what} failed: CUDA error {err} "
                         f"({_lib().sha256d_sweep_error_string(err).decode()})")
+
+
+def _is_cuda_error(e: BaseException) -> bool:
+    """A CUDA error as PyTorch reports it: ``torch.AcceleratorError`` where
+    the build has it, else a RuntimeError whose text names one."""
+    accelerator = getattr(torch, "AcceleratorError", None)
+    return (accelerator is not None and isinstance(e, accelerator)) or \
+        "CUDA error" in str(e)
+
+
+@contextlib.contextmanager
+def kernel_errors(what: str):
+    """Raises ``KernelError`` for a CUDA error that PyTorch reports inside
+    the block. A kernel that faults while it runs (an illegal address, a
+    trap) is reported at the next call that synchronises with the device,
+    the result's read-back, and leaves the context broken, so the next
+    call on the device (a fresh buffer's copy) fails the same way: both
+    are the kernel's failure, not a transient one."""
+    try:
+        yield
+    except RuntimeError as e:
+        if isinstance(e, KernelError) or not _is_cuda_error(e):
+            raise
+        raise KernelError(f"{what} failed: {e}") from e
 
 
 def new_result(device: torch.device) -> torch.Tensor:
@@ -278,29 +310,53 @@ def resident_warps(difficulty_bits: int, device: torch.device) -> int:
 
 def read_result(out: torch.Tensor) -> tuple[int, int]:
     """(count, min_nonce) from a result buffer; synchronises on it and
-    reads back its first 8 bytes."""
-    count, best = (int(v) & 0xFFFFFFFF for v in out[:2].tolist())
+    reads back its first 8 bytes (the wait releases the interpreter lock).
+    A CUDA error reported there raises ``KernelError``."""
+    with kernel_errors("sha256d_sweep read-back"):
+        words = out[:2].tolist()
+    count, best = (int(v) & 0xFFFFFFFF for v in words)
     return count, best
 
 
-class _ResultBuffers(threading.local):
-    """Per thread, by device: (out, fresh), one result buffer reused by
-    every search and a fresh copy on the device to reset it from, so a
-    reset is a copy on the stream and not an upload from the host."""
+class _FreshBuffers(threading.local):
+    """Per thread, by device: a fresh result buffer (``new_result``) that
+    each launch's own buffer is cloned from, so that starting a sweep is a
+    copy on the stream and not an upload from the host."""
 
     def __init__(self):
-        self.by_device: dict[torch.device, tuple[torch.Tensor,
-                                                 torch.Tensor]] = {}
+        self.by_device: dict[torch.device, torch.Tensor] = {}
 
-    def get(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-        pair = self.by_device.get(device)
-        if pair is None:
-            fresh = new_result(device)
-            pair = self.by_device[device] = (fresh.clone(), fresh)
-        return pair
+    def get(self, device: torch.device) -> torch.Tensor:
+        fresh = self.by_device.get(device)
+        if fresh is None:
+            fresh = self.by_device[device] = new_result(device)
+        return fresh
 
 
-_result_buffers = _ResultBuffers()
+_fresh_buffers = _FreshBuffers()
+
+
+def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
+                 device: torch.device | str, early_exit: bool = False
+                 ) -> torch.Tensor:
+    """Enqueues one sweep of [base, base + count) on a CUDA ``device`` into
+    a result buffer of its own and returns the buffer, without waiting:
+    ``read_result`` of it waits and gives (count, min_nonce). A sweep on
+    the device while the host goes on; ``sweep`` is both at once."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ConfigError(f"sweep_launch runs on a CUDA device, not "
+                          f"{device}")
+    if not torch.cuda.is_available():
+        raise ConfigError(f"no CUDA device is available for {device}")
+    ext_host = np.asarray(sha256_torch.ext_words(ext), dtype=np.uint32)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with kernel_errors("sha256d_sweep launch"):
+        out = _fresh_buffers.get(device).clone()
+        launch(ext_host, base, count, difficulty_bits, out,
+               early_exit=early_exit)
+    return out
 
 
 def sweep(ext, base: int, count: int, difficulty_bits: int, *,
@@ -323,16 +379,8 @@ def sweep(ext, base: int, count: int, difficulty_bits: int, *,
     if device.type != "cuda":
         raise ConfigError(f"the sweep runs on a CUDA device or the CPU, "
                           f"not {device}")
-    if not torch.cuda.is_available():
-        raise ConfigError(f"no CUDA device is available for {device}")
-    ext_host = np.asarray(sha256_torch.ext_words(ext), dtype=np.uint32)
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    out, fresh = _result_buffers.get(device)
-    out.copy_(fresh)
-    launch(ext_host, base, count, difficulty_bits, out,
-           early_exit=early_exit)
-    return read_result(out)
+    return read_result(sweep_launch(ext, base, count, difficulty_bits,
+                                    device=device, early_exit=early_exit))
 
 
 #: What one Hopper SM retires per clock, in thread-instructions: four

@@ -90,13 +90,24 @@ def test_kernel_and_device_policy(monkeypatch):
 
 def test_backend_from_config():
     be = backend_from_config(MinerConfig(backend="cpu", n_miners=3,
-                                         batch_pow2=12))
+                                         batch_pow2=12), resilient=False)
     assert isinstance(be, CpuBackend) and be.n_ranks == 3
-    be = backend_from_config(MinerConfig(device="cpu", batch_pow2=14))
+    be = backend_from_config(MinerConfig(device="cpu", batch_pow2=14),
+                             resilient=False)
     assert isinstance(be, CudaBackend)
     assert be.batch_size == 1 << 14 and be.effective_kernel == "torch"
-    with pytest.raises(ConfigError, match="n_miners"):
-        backend_from_config(MinerConfig(device="cpu", n_miners=2))
+    # Wrapped by default; the active rung is the same backend.
+    wrapped = backend_from_config(MinerConfig(device="cpu", batch_pow2=14))
+    assert isinstance(wrapped.active_backend, CudaBackend)
+    assert wrapped.active_backend.effective_kernel == "torch"
+    assert wrapped.rung == "cuda:torch" and not wrapped.degraded
+    wrapped = backend_from_config(MinerConfig(backend="cpu", n_miners=3))
+    assert isinstance(wrapped.active_backend, CpuBackend)
+    assert wrapped.active_backend.n_ranks == 3 and wrapped.rung == "cpu"
+    for resilient in (True, False):
+        with pytest.raises(ConfigError, match="n_miners"):
+            backend_from_config(MinerConfig(device="cpu", n_miners=2),
+                                resilient=resilient)
     with pytest.raises(ConfigError, match="unknown miner_backend"):
         get_backend("tpu")
     with pytest.raises(ConfigError):

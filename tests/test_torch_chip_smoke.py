@@ -1,5 +1,8 @@
-"""The plain helpers of ``chip_smoke.py`` that turn its measurements into
-numbers, on synthetic input: no card needed."""
+"""The plain helpers of ``chip_smoke.py``, on synthetic input: those that
+turn its measurements into numbers, and those that build phase 6's fault
+plans, environments and checks. No card needed."""
+import os
+
 import numpy as np
 import pytest
 
@@ -69,3 +72,74 @@ def test_step_edge_cases_cover_every_edge():
         combos = {(int(p[0]), int(h), int(n[0]))
                   for p, h, n in zip(prev, heights, nonces)}
         assert len(combos) == len(prev) == 8
+
+
+def test_fault_plan_is_what_mine_reads():
+    from mpi_blockchain_tpu_torch.resilience.faultplan import FaultPlan
+
+    plan = chip_smoke.fault_plan("backend.cuda.dispatch", "corrupt")
+    spec = FaultPlan.from_dict(plan).faults[0]
+    assert (spec.site, spec.kind, spec.call, spec.times) == (
+        "backend.cuda.dispatch", "corrupt", 0, 1)
+    plan = chip_smoke.fault_plan("backend.cpu.search", "hang", call=5,
+                                 times=-1, seconds=0.01)
+    spec = FaultPlan.from_dict(plan).faults[0]
+    assert (spec.call, spec.times, spec.seconds) == (5, -1, 0.01)
+
+
+def test_without_nvcc_hides_every_nvcc(tmp_path, monkeypatch):
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+    bins = []
+    for name in ("cuda_bin", "other_bin"):
+        d = tmp_path / name
+        d.mkdir()
+        bins.append(d)
+    (bins[0] / "nvcc").write_text("#!/bin/sh\n")
+    (bins[0] / "nvcc").chmod(0o755)
+    env = {"PATH": os.pathsep.join(str(b) for b in bins),
+           "CUDA_HOME": str(bins[0].parent), "HOME": "/home/x"}
+    got = chip_smoke.without_nvcc(env, str(tmp_path / "missing"))
+    assert got["PATH"] == str(bins[1]) and got["HOME"] == "/home/x"
+    assert got["CUDA_HOME"] == got["CUDA_PATH"] == str(tmp_path / "missing")
+    for key in ("PATH", "CUDA_HOME"):
+        monkeypatch.setenv(key, got[key])
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME",
+                        got["CUDA_HOME"])
+    assert sha256_cuda.find_nvcc() is None
+
+
+def test_metric_total_sums_a_metrics_samples():
+    from mpi_blockchain_tpu_torch import telemetry
+
+    reg = telemetry.Registry()
+    reg.counter("retries_total", site="dispatch.cuda:cuda").inc(2)
+    reg.counter("retries_total", site="checkpoint.write").inc()
+    reg.counter("retries_total_other").inc(7)
+    reg.gauge("backend_degraded").set(1)
+    text = reg.render_prometheus()
+    assert chip_smoke.metric_total(text, "retries_total") == 3
+    assert chip_smoke.metric_total(text, "backend_degraded") == 1
+    assert chip_smoke.metric_total(text, "backend_degradations_total") == 0
+    assert chip_smoke.metric_total("", "retries_total") == 0
+
+
+def test_check_no_step_down():
+    chip_smoke.check_no_step_down({"rung": "cuda:cuda"}, "cuda:cuda", "x")
+    for summary in ({"rung": "cpu", "degraded": True, "degraded_to": "cpu"},
+                    {"rung": "cuda:cuda", "degraded": True},
+                    {"rung": "cuda:torch"}, {}):
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.check_no_step_down(summary, "cuda:cuda", "x")
+
+
+def test_host_time_per_block():
+    run = {"wall_s": 2.8, "kernel_s": 2.3}
+    assert chip_smoke.host_ms_per_block(run, 1000) == pytest.approx(0.5)
+
+
+def test_run_cli_returns_the_summary(capsys):
+    rc, out = chip_smoke.run_cli(["mine", "--backend", "cpu",
+                                  "--difficulty", "8", "--blocks", "2"])
+    assert rc == 0 and out["height"] == 2 and out["rung"] == "cpu"
+    assert capsys.readouterr().out == ""

@@ -61,15 +61,37 @@ then:
    ``cuda:cuda`` with the pinned d20/n10 tip; (d) a ``mine`` subprocess with
    no ``nvcc`` exits 2 with a JSON error naming it, with no retry and no
    step-down in its metrics; (e) a d20 ``mine --checkpoint-every 1`` on the
-   card is SIGKILLed, resumed to 10 blocks and verified, at the pinned tip.
+   card is SIGKILLed, resumed to 10 blocks and verified, at the pinned tip;
+   (a) also prints each run's host time a block by span (``miner.block``,
+   ``miner.sweep``, ``miner.append``, ``backend.cuda.dispatch``,
+   ``backend.cuda.host_tail``, from ``span_seconds``); (f) an early-exit
+   sweep of [0, 2^32) at dbits 64 (it runs its whole length, about half a
+   second) consumed by the pipelined ``Miner`` with a 0.05 s
+   ``MPIBT_DISPATCH_TIMEOUT`` raises "dispatch wedged" within a few times
+   the budget, and a search launched after it returns the C++ sweep's
+   winner;
+7. the bench (``bench_lib``): the sweep rate at 2^28 a call for
+   BENCH_SECONDS with 1 and 8 logical miners (``hashes_per_sec``,
+   ``kernel_ms``, ``bound_ms``), the chain mode at d24/n1000/b24, 100
+   blocks a call, best of 2 with its spread (``repeat_best``), the d16/n30
+   ``bench_sharded`` cell and the d20/n10 ``bench_cuda_single`` cell, each
+   tip against its pin and the C++ oracle's;
+8. winner-select: ``mine --preset tpu-mesh8`` (d24/n1000/b20, 8 logical
+   miners) through the pipelined ``Miner`` and through ``--fused
+   --blocks-per-call 100``, tips against the d24/n1000 pin, the summed
+   ``hashes_tried`` against the reference's accounting at rounds of 2^23
+   over the chain's nonces, launches counted; and two processes sharing
+   the card over gloo (``mine --coordinator``, d20/n10/b20): both ranks
+   reach the pinned tip, rank 0 alone writes the chain, the wall beside
+   the single process's of phase 3.
 
-Every ``mine`` of phases 3 and 6 goes through the wrapper; the smoke fails
-on any retry or step-down that its plan did not cause.
+Every ``mine`` of phases 3, 6 and 8 goes through the wrapper; the smoke
+fails on any retry or step-down that its plan did not cause.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line; with no CUDA device it fails at once. It takes about
-three minutes on one NVIDIA H100, the builds included.
+five minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
@@ -125,6 +147,18 @@ OVERSHOOT_LAUNCHES = 101
 # Phase 6 (a): the d24/n1000 Miner runs, in this order. The other forms of
 # search_async are measured by ``tools/dispatch_variants.py``.
 MINER_TURNS = ("wrapped", "raw", "raw", "wrapped")
+# The spans whose seconds phase 6 (a) splits a block's host time into.
+SPAN_NAMES = ("miner.block", "miner.sweep", "miner.append",
+              "backend.cuda.dispatch", "backend.cuda.host_tail")
+# Phase 6 (f): the consume budget of the wedged sweep.
+WEDGE_BUDGET_S = 0.05
+# Phase 7: the sweep bench's length and logical miners.
+BENCH_SECONDS = 5.0
+BENCH_MINERS = (1, 8)
+# Phase 8: the tpu-mesh8 preset's round (8 miners x 2^20 nonces), and the
+# chain the two-process world mines (the d20/n10/b20 pin).
+MESH8_ROUND = 8 << 20
+WORLD_ARGS = ("--difficulty", "20", "--blocks", "10", "--batch-pow2", "20")
 REPO_ROOT = str(pathlib.Path(__file__).resolve().parent)
 
 
@@ -476,7 +510,7 @@ def phase_tips(device):
             f"least nonces hashed {least_work} "
             f"({least_work / kernel_s / 1e9:.4f} GH/s in the kernel); "
             f"card during the run {run['clocks']}")
-    return results[(24, 1000)]
+    return {**results[(24, 1000)], "d20_wall_s": summary["wall_s"]}
 
 
 def time_in_turns(ext, configs: dict, reps: int, expect_min: int,
@@ -1114,6 +1148,7 @@ def phase_resilience(device) -> dict:
         telemetry.reset()
         backend = backend_from_config(cfg, resilient=(turn != "raw"))
         run = mine_timed(Miner(cfg, backend=backend, pipeline=True))
+        run["span_ms_per_block"] = span_ms_per_block(1000)
         runs[turn].append(run)
         check(run["launches"] == run["searches"] == 1000,
               f"6a {turn}: {run['launches']} launches, {run['searches']} "
@@ -1133,6 +1168,7 @@ def phase_resilience(device) -> dict:
             "kernel_s": [r["kernel_s"] for r in rs],
             "kernel_share": [r["kernel_s"] / r["wall_s"] for r in rs],
             "host_ms_per_block": [host_ms_per_block(r, 1000) for r in rs],
+            "span_ms_per_block": [r["span_ms_per_block"] for r in rs],
             "clocks": [r["clocks"] for r in rs]}
         log(f"phase 6a d24/n1000 pipelined Miner, {turn}: walls "
             f"{[round(r['wall_s'], 6) for r in rs]} s (median {wall:.6f}), "
@@ -1141,7 +1177,8 @@ def phase_resilience(device) -> dict:
             f"host time a block "
             f"{[round(host_ms_per_block(r, 1000), 4) for r in rs]} ms "
             f"(median wall minus median sweeps: "
-            f"{(wall - kernel) / 1000 * 1e3:.4f} ms)")
+            f"{(wall - kernel) / 1000 * 1e3:.4f} ms); by span, ms a block: "
+            f"{[{k: round(v, 6) for k, v in r['span_ms_per_block'].items()} for r in rs]}")
 
     with tempfile.TemporaryDirectory() as td:
         tmp = pathlib.Path(td)
@@ -1228,6 +1265,256 @@ def host_ms_per_block(run: dict, blocks: int) -> float:
     return (run["wall_s"] - run["kernel_s"]) / blocks * 1e3
 
 
+def span_ms_per_block(blocks: int) -> dict[str, float]:
+    """Milliseconds a block each of SPAN_NAMES took in the run since the
+    last ``telemetry.reset()`` (``span_seconds`` sums)."""
+    from mpi_blockchain_tpu_torch import telemetry
+
+    return {name: telemetry.span_seconds(name) / blocks * 1e3
+            for name in SPAN_NAMES}
+
+
+def chain_nonces(blob: bytes) -> list[int]:
+    """The nonces of a chain file's blocks after genesis (the header's last
+    four bytes, little-endian)."""
+    return [int.from_bytes(blob[h + 76:h + 80], "little")
+            for h in range(80, len(blob), 80)]
+
+
+def mesh_hashes_tried(nonces: list[int], round_size: int) -> int:
+    """The reference's ``hashes_tried`` for a chain whose blocks were each
+    searched from nonce 0 over the whole space at ``round_size``."""
+    from mpi_blockchain_tpu_torch.backend.cuda import reference_hashes_tried
+
+    return sum(reference_hashes_tried(0, NONCE_SPACE, round_size, n)
+               for n in nonces)
+
+
+def last_block(stderr: str) -> dict:
+    """The last ``block_mined`` line a ``mine --verbose`` printed."""
+    blocks = [json.loads(ln) for ln in stderr.splitlines()
+              if '"block_mined"' in ln]
+    return blocks[-1] if blocks else {}
+
+
+def phase_wedge(device) -> dict:
+    """Phase 6 (f): the bound on a wedged dispatch, on the card."""
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.backend import backend_from_config
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models import miner as miner_mod
+
+    import torch
+
+    miner = miner_mod.Miner(MinerConfig(difficulty_bits=64, n_blocks=1,
+                                        batch_pow2=20), pipeline=True)
+    budget, miner_mod.DISPATCH_TIMEOUT_S = miner_mod.DISPATCH_TIMEOUT_S, \
+        WEDGE_BUDGET_S
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        miner.mine_chain()
+        raise SmokeFailure("6f: a sweep that cannot finish in the budget "
+                           "returned")
+    except RuntimeError as e:
+        took = time.perf_counter() - t0
+        check("dispatch wedged" in str(e), f"6f: {e}")
+    finally:
+        miner_mod.DISPATCH_TIMEOUT_S = budget
+    hdr = bytes(range(80))
+    t1 = time.perf_counter()
+    got = backend_from_config(MinerConfig(difficulty_bits=20)).search(hdr, 20)
+    after = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    sweep_left = time.perf_counter() - t0
+    nonce, _ = core.cpu_search(hdr, 0, NONCE_SPACE, 20)
+    check(got.nonce == nonce, f"6f: the search after the wedge found "
+          f"{got.nonce}, the C++ sweep {nonce}")
+    check(WEDGE_BUDGET_S <= took < 6 * WEDGE_BUDGET_S,
+          f"6f: raised after {took:.4f} s for a {WEDGE_BUDGET_S} s budget")
+    log(f"phase 6f wedged sweep (early exit over [0, 2^32) at dbits 64): "
+        f"'dispatch wedged' raised after {took:.6f} s for a "
+        f"{WEDGE_BUDGET_S} s budget; the next search (d20) returned nonce "
+        f"{got.nonce} == the C++ sweep's after {after:.6f} s, behind the "
+        f"wedged sweep ({sweep_left:.6f} s from the start to the card "
+        f"idle)")
+    return {"raised_after_s": took, "budget_s": WEDGE_BUDGET_S,
+            "next_search_s": after, "next_search_nonce": got.nonce}
+
+
+def phase_bench(device, fused: dict) -> dict:
+    """Phase 7: the bench library on the card. Returns the payloads."""
+    from mpi_blockchain_tpu_torch import bench_lib
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    card = nvidia_smi("name,power.limit")
+    out: dict = {"sweep": {}}
+    for n in BENCH_MINERS:
+        with ClockSampler() as clocks:
+            got = bench_lib.bench_cuda(seconds=BENCH_SECONDS, n_miners=n,
+                                       device=device)
+        check(got["kernel"] == "cuda" and "kernel_ms" in got
+              and "bound_ms" in got, f"7 sweep m{n}: {got}")
+        check(got["bound_ms"] <= got["kernel_ms"],
+              f"7 sweep m{n}: a call took {got['kernel_ms']:.4f} ms, under "
+              f"its bound {got['bound_ms']:.4f} ms")
+        got["clocks"] = clocks.summary()
+        out["sweep"][n] = got
+        log(f"phase 7 bench --mode sweep, {n} logical miner(s), 2^"
+            f"{got['batch_pow2']} x {n} nonces a call, {got['calls']} calls "
+            f"in {got['wall_s']} s: hashes_per_sec {got['hashes_per_sec']!r}"
+            f", kernel_ms {got['kernel_ms']!r} (median of one call), "
+            f"bound_ms {got['bound_ms']!r} ({got['bound_ms'] / got['kernel_ms']:.4f}"
+            f" of it); {card}; card during the run {got['clocks']}")
+
+    sha256_cuda.launches = sha256_block.step_launches = 0
+    chain = bench_lib.bench_chain(n_blocks=1000, difficulty_bits=24,
+                                  batch_pow2=24, blocks_per_call=100,
+                                  device=device)
+    sweeps, steps = sha256_cuda.launches, sha256_block.step_launches
+    check(chain["tip_hash"] == PINNED_TIPS[(24, 1000, 24)],
+          f"7 chain: tip {chain['tip_hash']}")
+    check(sweeps == 1000 and steps == 1010,
+          f"7 chain: {sweeps} sweeps and {steps} steps")
+    best = bench_lib.repeat_best(
+        lambda: bench_lib.bench_chain(n_blocks=1000, difficulty_bits=24,
+                                      batch_pow2=24, blocks_per_call=100,
+                                      device=device),
+        reps=2, key="wall_s", minimize=True, prior=[chain])
+    out["chain"] = {**best, "sweeps": sweeps, "steps": steps}
+    log(f"phase 7 bench --mode chain d24/n1000/b24 at 100 blocks a call: "
+        f"tip {chain['tip_hash']} matches the pin; walls "
+        f"{best['all_wall_s']} s (best {best['wall_s']}, spread "
+        f"{best['spread_pct']}%), {sweeps} sweeps and {steps} steps in the "
+        f"first; fused d24/n1000 in phase 5: {fused['wall_s']:.6f} s; "
+        f"{card}")
+
+    sharded = bench_lib.bench_sharded(device=device)
+    check(sharded["tip_hash"] == PINNED_TIPS[(16, 30, 20)]
+          and sharded["tip_matches_cpu_oracle"],
+          f"7 sharded: {sharded}")
+    out["sharded"] = sharded
+    single = bench_lib.bench_cuda_single(device=device)
+    check(single["tip_hash"] == PINNED_TIPS[(20, 10, 20)]
+          and single["tip_matches_cpu_oracle"], f"7 single: {single}")
+    out["single"] = single
+    log(f"phase 7 bench_sharded d16/n30/b20 at 10 a call: tip matches the "
+        f"pin and the C++ oracle, wall {sharded['wall_s']} s; "
+        f"bench_cuda_single d20/n10/b20 (pipelined Miner): tip matches, "
+        f"wall {single['wall_s']} s, {single['hashes_per_sec']} hashes/s "
+        f"(reference accounting); {card}")
+    return out
+
+
+def phase_mesh(device, miner_chain: dict, fused: dict,
+               d20_wall: float) -> dict:
+    """Phase 8: winner-select. Returns the numbers."""
+    from mpi_blockchain_tpu_torch import core, telemetry
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    card = nvidia_smi("name,power.limit")
+    out: dict = {}
+    pinned = PINNED_TIPS[(24, 1000, 24)]
+    with tempfile.TemporaryDirectory() as td:
+        for form, extra in (("miner", []),
+                            ("fused", ["--fused", "--blocks-per-call",
+                                       "100"])):
+            chain_file = os.path.join(td, f"{form}.bin")
+            telemetry.reset()
+            sha256_cuda.launches = sha256_block.step_launches = 0
+            t0 = time.perf_counter()
+            rc, summary = run_cli(["mine", "--preset", "tpu-mesh8",
+                                   "--out", chain_file, *extra])
+            wall = time.perf_counter() - t0
+            sweeps, steps = sha256_cuda.launches, sha256_block.step_launches
+            check(rc == 0 and summary.get("tip_hash") == pinned,
+                  f"8 tpu-mesh8 {form}: rc {rc}, {summary}")
+            check(summary["config"]["n_miners"] == 8,
+                  f"8 tpu-mesh8 {form}: {summary['config']}")
+            with open(chain_file, "rb") as f:
+                blob = f.read()
+            check(core.Node(summary["config"]["difficulty_bits"]).load(blob),
+                  f"8 {form}: chain invalid")
+            row = {"wall_s": summary["wall_s"], "cli_wall_s": wall,
+                   "sweeps": sweeps, "steps": steps,
+                   "tip_hash": summary["tip_hash"]}
+            if form == "miner":
+                want = mesh_hashes_tried(chain_nonces(blob), MESH8_ROUND)
+                check(summary["hashes_tried"] == want,
+                      f"8 tpu-mesh8: hashes_tried {summary['hashes_tried']}"
+                      f", the reference's accounting {want}")
+                check(sweeps == 1000, f"8 tpu-mesh8: {sweeps} launches")
+                check_no_step_down(summary, "cuda:cuda", "8 tpu-mesh8")
+                row["hashes_tried"] = want
+                beside = (f"pipelined Miner m1 (phase 3): "
+                          f"{miner_chain['wall_s']:.6f} s")
+            else:
+                check(sweeps == 1000 and steps == 1010,
+                      f"8 tpu-mesh8 fused: {sweeps} sweeps, {steps} steps")
+                beside = f"fused m1 (phase 5): {fused['wall_s']:.6f} s"
+            out[form] = row
+            log(f"phase 8 mine --preset tpu-mesh8 ({form}, d24/n1000/b20, "
+                f"8 logical miners): tip matches the d24/n1000 pin; wall "
+                f"{summary['wall_s']} s (the CLI call {wall:.6f} s) beside "
+                f"the {beside}; {sweeps} sweeps, {steps} steps"
+                + (f"; hashes_tried {summary['hashes_tried']} == the "
+                   f"reference's at rounds of 2^23"
+                   if form == "miner" else "") + f"; {card}")
+
+        out["world"] = two_process_world(td, d20_wall)
+    return out
+
+
+def two_process_world(td: str, d20_wall: float) -> dict:
+    """Two ``mine`` processes sharing the card over gloo, d20/n10/b20."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    chain_file = os.path.join(td, "world.bin")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mpi_blockchain_tpu_torch", "mine",
+         *WORLD_ARGS, "--out", chain_file, "--verbose", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(rank)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=td) for rank in range(2)]
+    try:
+        got = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    spawn_wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0, 0], f"8 world: rcs {rcs}; "
+          f"{[e[-1500:] for _, e in got]}")
+    pinned = PINNED_TIPS[(20, 10, 20)]
+    summary = json.loads(got[0][0].strip().splitlines()[-1])
+    tips = [last_block(err).get("hash") for _, err in got]
+    check(summary["tip_hash"] == pinned and tips == [pinned, pinned],
+          f"8 world: summary tip {summary['tip_hash']}, ranks' tips {tips}")
+    check(got[1][0].strip() == "", f"8 world: rank 1 printed "
+          f"{got[1][0][-300:]!r}")
+    check(summary["config"]["n_miners"] == 2, f"8 world: {summary}")
+    from mpi_blockchain_tpu_torch import core
+    with open(chain_file, "rb") as f:
+        check(core.Node(summary["config"]["difficulty_bits"]).load(f.read()),
+              "8 world: chain invalid")
+    log(f"phase 8 two processes over gloo on one card (d20/n10/b20): both "
+        f"ranks reach the pinned tip {pinned}, rank 0 alone wrote the "
+        f"chain and the summary; wall {summary['wall_s']} s (rank 0's "
+        f"mine_chain; the whole launch {spawn_wall:.3f} s) beside one "
+        f"process's {d20_wall} s (phase 3); hashes_tried "
+        f"{summary['hashes_tried']}, rung {summary['rung']}")
+    return {"wall_s": summary["wall_s"], "launch_wall_s": spawn_wall,
+            "single_process_wall_s": d20_wall,
+            "hashes_tried": summary["hashes_tried"], "rung": summary["rung"]}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1266,6 +1553,10 @@ def main() -> int:
         symbol_mismatches = phase_ext_symbol(device)
         fused = phase_fused(device, chain)
         resilience = phase_resilience(device)
+        resilience["wedge"] = phase_wedge(device)
+        bench = phase_bench(device, fused[(24, 1000)])
+        mesh = phase_mesh(device, chain, fused[(24, 1000)],
+                          chain["d20_wall_s"])
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -1286,11 +1577,16 @@ def main() -> int:
         "d24_n1000_kernel_share": chain["kernel_s"] / chain["wall_s"],
         "d24_n1000_least_nonces": chain["least_nonces"],
         "fused_d24_n1000": f24, "fused_d16_n30": f16,
-        "resilience": resilience}, {
+        "launches_bench_chain_d24_n1000": bench["chain"]["sweeps"],
+        "launches_mesh8_miner_d24_n1000": mesh["miner"]["sweeps"],
+        "launches_mesh8_fused_d24_n1000": mesh["fused"]["sweeps"],
+        "bench": bench, "mesh8": mesh, "resilience": resilience}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",
         "library_ms": None, **step,
+        "launches_bench_chain_d24_n1000": bench["chain"]["steps"],
+        "launches_mesh8_fused_d24_n1000": mesh["fused"]["steps"],
         "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
         "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
     log(json.dumps({"ok": True, "device": {

@@ -7,12 +7,17 @@ package; the C++ chain core is a verbatim copy, so chains are
 bit-identical across the two.
 
 Layout:
-  core/      C++ chain core (sha256, Block, Chain, Node) via ctypes
-  ops/       the sweep: plain PyTorch version and the CUDA kernel
-  backend/   miner_backend plugin boundary: {cpu, cuda}
-  models/    the Miner driver (sequential and pipelined)
-  convert.py state carried over from the reference (ext words, chains)
-  cli.py     python -m mpi_blockchain_tpu_torch mine|verify|info
+  core/        C++ chain core (sha256, Block, Chain, Node) via ctypes
+  ops/         the sweep: plain PyTorch version and the CUDA kernel
+  backend/     miner_backend plugin boundary: {cpu, cuda}
+  models/      the Miner driver (sequential and pipelined), the fused miner
+  parallel/    winner-select of more than one miner, the gloo world
+  resilience/  retries, the step-down ladder, fault injection
+  telemetry/   metrics, spans, events
+  utils/       sealed checkpoints
+  bench_lib.py sweep rate and chain wall measurements
+  convert.py   state carried over from the reference (ext words, chains)
+  cli.py       python -m mpi_blockchain_tpu_torch mine|bench|verify|info
 """
 
 __version__ = "0.1.0"

@@ -1,3 +1,4 @@
 from .cli import main
+from .parallel.distributed import exit_process
 
-raise SystemExit(main())
+exit_process(main())

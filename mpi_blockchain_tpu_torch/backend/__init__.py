@@ -116,7 +116,8 @@ def get_backend(name: str, **kwargs) -> MinerBackend:
     return cls(**kwargs)
 
 
-def backend_from_config(config, resilient: bool = True) -> MinerBackend:
+def backend_from_config(config, resilient: bool = True,
+                        group=None) -> MinerBackend:
     """The one place a MinerConfig becomes a backend instance (shared by
     ``Miner`` and ``FusedMiner``'s rollover search).
 
@@ -127,22 +128,25 @@ def backend_from_config(config, resilient: bool = True) -> MinerBackend:
     (``cuda:<kernel>`` → ``cuda:torch`` → ``cpu``) on repeated failure of
     what may step down.
     ``resilient=False`` returns the raw top rung (equivalence tests and
-    measurements of one backend).
+    measurements of one backend). ``config.n_miners`` miners split each
+    round; ``group``, a ``torch.distributed`` process group of that many
+    ranks (the reference's mesh), makes this process one of them
+    (``backend/cuda.py``).
     """
-    if config.backend != "cpu" and config.n_miners != 1:
-        raise ConfigError(
-            f"the cuda backend mines on one device; n_miners="
-            f"{config.n_miners} needs multi-GPU winner-select, which is "
-            f"not ported yet")
+    if group is not None and config.backend == "cpu":
+        raise ConfigError("a world of processes mines with the cuda "
+                          "backend (--device cpu for the CPU), not "
+                          "--backend cpu")
     if resilient:
         from ..resilience.dispatch import ResilientBackend, \
             ladder_from_config
-        return ResilientBackend(ladder_from_config(config))
+        return ResilientBackend(ladder_from_config(config, group=group))
     if config.backend == "cpu":
         return get_backend("cpu", n_ranks=config.n_miners,
                            batch_size=config.batch_size)
     return get_backend("cuda", batch_pow2=config.effective_batch_pow2,
-                       kernel=config.kernel, device=config.device)
+                       kernel=config.kernel, device=config.device,
+                       n_miners=config.n_miners, group=group)
 
 
 def _faulted_result(fault, res: SearchResult,

@@ -4,7 +4,8 @@ With n_ranks > 1 it splits the search space the way ``mpirun -np N`` ranks
 did, in interleaved contiguous rounds, which keeps the lowest-nonce winner
 rule exact. The ``backend.cpu.search`` fault site sits before the sweep:
 ``raise`` / ``hang`` fire there, ``corrupt`` / ``partial`` damage the
-result.
+result. The sweep runs inside the reference's ``backend.cpu.search``
+span.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import concurrent.futures
 
 from .. import core
 from ..resilience import injection
+from ..telemetry.spans import span
 from . import MinerBackend, SearchResult, _faulted_result, register
 
 
@@ -27,15 +29,16 @@ class CpuBackend(MinerBackend):
                start_nonce: int = 0, max_count: int = 1 << 32) -> SearchResult:
         fault = injection.check("backend.cpu.search",
                                 difficulty=difficulty_bits)
-        if self.n_ranks == 1:
-            nonce, tried = core.cpu_search(header80, start_nonce,
-                                           max_count, difficulty_bits)
-            digest = (core.header_hash(core.set_nonce(header80, nonce))
-                      if nonce is not None else None)
-            res = SearchResult(nonce, digest, tried)
-        else:
-            res = self._search_ranks(header80, difficulty_bits, start_nonce,
-                                     max_count)
+        with span("backend.cpu.search", n_ranks=self.n_ranks):
+            if self.n_ranks == 1:
+                nonce, tried = core.cpu_search(header80, start_nonce,
+                                               max_count, difficulty_bits)
+                digest = (core.header_hash(core.set_nonce(header80, nonce))
+                          if nonce is not None else None)
+                res = SearchResult(nonce, digest, tried)
+            else:
+                res = self._search_ranks(header80, difficulty_bits,
+                                         start_nonce, max_count)
         if fault is not None:
             res = _faulted_result(fault, res, start_nonce)
         return res

@@ -13,6 +13,36 @@ goes to the CPU. The only host sync is the 8-byte result read-back.
 for the same search and round size (``reference_hashes_tried``), so a
 ``SearchResult`` equals ``TpuBackend``'s field for field.
 
+More than one miner (the reference's ``('miners',)`` mesh), in two forms:
+
+* **N logical miners in one process** (``n_miners=N``, no ``group``): a
+  round covers N x B nonces, miner i sweeping its B-slice of it. The
+  lowest qualifier of the first round that holds one is the lowest
+  qualifier of the whole range, which is what the one early-exit launch
+  already returns; so the search stays one launch, and only the
+  accounting counts rounds of N x B (``reference_hashes_tried``), as the
+  reference's mesh does.
+* **One miner per process** (``group``, a ``torch.distributed`` process
+  group of N ranks): rank i sweeps its B-slice of each round,
+  [base + i*B, + B), with the early-exit kernel, then ``winner_select``
+  sums the counts and takes the least nonce over gloo, and the search
+  stops at the first round whose summed count is above 0, round by round
+  as the reference's ``make_round_search``. Past the last whole round
+  below 2^32 every rank sweeps the tail alone, as every reference process
+  runs the C++ tail. The launch starts the first round's slice; the
+  collectives run only in the finish, on the thread that consumes the
+  search, so no rank enters a collective that another skipped.
+
+Spans: ``backend.cuda.dispatch`` covers putting the search on the card
+(the per-template precompute and the launch), the counterpart of
+``backend.tpu.dispatch``, which there also covers the wait for the
+device's value; here the wait is the consumer's (``miner.sweep``).
+``backend.cuda.host_tail`` covers the host's share once the device's
+result is back (the reference's accounting and the winner's digest), the
+counterpart of ``backend.tpu.host_tail``, the reference's host share of a
+search (there the C++ tail past the last whole round, which the one launch
+here leaves to the kernel).
+
 The ``backend.cuda.dispatch`` fault site sits before the launch:
 ``raise`` / ``hang`` fire before any device work, ``corrupt`` / ``partial``
 damage the finished result (``backend._faulted_result``). With the CUDA
@@ -29,10 +59,12 @@ import torch
 from .. import core
 from ..config import ConfigError
 from ..ops import extend_midstate, select_kernel
+from ..parallel.mesh import NONCE_SPACE, winner_select
 from ..resilience import injection
+from ..telemetry.spans import span
 from . import MinerBackend, SearchResult, _faulted_result, register
 
-NONCE_SPACE = 1 << 32
+_NOT_FOUND = (0, 0xFFFFFFFF)
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -53,6 +85,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+def device_rounds(start: int, end: int, round_size: int) -> int:
+    """Whole rounds of ``round_size`` the reference sweeps on the device
+    for a search of [start, end): those that end at or below 2^32, the
+    last one possibly past ``end`` (a round of exactly 2^32 is legal)."""
+    if start >= end or start + round_size > NONCE_SPACE:
+        return 0
+    return min(-(-(end - start) // round_size),
+               (NONCE_SPACE - start) // round_size, 0xFFFFFFFF)
+
+
 def reference_hashes_tried(start: int, end: int, round_size: int,
                            winner: int | None) -> int:
     """Nonces the reference ``TpuBackend`` counts for a search of
@@ -66,11 +108,7 @@ def reference_hashes_tried(start: int, end: int, round_size: int,
     """
     if start >= end:
         return 0
-    n_rounds = 0
-    if start + round_size <= NONCE_SPACE:
-        n_rounds = min(-(-(end - start) // round_size),
-                       (NONCE_SPACE - start) // round_size, 0xFFFFFFFF)
-    device_end = start + n_rounds * round_size
+    device_end = start + device_rounds(start, end, round_size) * round_size
     if winner is not None and winner < device_end:
         r = (winner - start) // round_size
         return r * round_size + min(round_size, end - (start + r * round_size))
@@ -84,9 +122,24 @@ def reference_hashes_tried(start: int, end: int, round_size: int,
 @register("cuda")
 class CudaBackend(MinerBackend):
     def __init__(self, batch_pow2: int = 20, kernel: str = "auto",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", n_miners: int = 1,
+                 group=None):
+        if n_miners < 1:
+            raise ConfigError(f"n_miners must be >= 1, got {n_miners}")
         self.device = resolve_device(device)
         self.batch_size = 1 << batch_pow2
+        self.n_miners = n_miners
+        self.group = group
+        self.rank = 0
+        if group is not None:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank(group)
+            world = dist.get_world_size(group)
+            if world != n_miners:
+                raise ConfigError(
+                    f"the process group has {world} ranks but n_miners="
+                    f"{n_miners}: the round split must match the world")
         self.kernel = kernel
         self.effective_kernel: str | None = None
         self._searchers: dict[int, object] = {}   # difficulty -> sweep fn
@@ -102,6 +155,11 @@ class CudaBackend(MinerBackend):
     def hand_written_kernel(self) -> bool:     # type: ignore[override]
         return self.effective_kernel == "cuda"
 
+    @property
+    def round_size(self) -> int:
+        """Nonces of one round: every miner's B-slice."""
+        return self.batch_size * self.n_miners
+
     def _searcher(self, difficulty_bits: int):
         fn = self._searchers.get(difficulty_bits)
         if fn is None:
@@ -110,39 +168,94 @@ class CudaBackend(MinerBackend):
             self._searchers[difficulty_bits] = fn
         return fn
 
+    def _start(self, ext, base: int, count: int, difficulty_bits: int):
+        """Starts one early-exit sweep of [base, base + count) and returns
+        the function that gives its (count, min_nonce). With the CUDA
+        kernel the sweep is on the device when this returns, and the
+        function carries ``ready``, which says without blocking whether
+        the device is done; with the plain version the function does all
+        the work."""
+        if count <= 0:
+            return lambda: _NOT_FOUND
+        if self.effective_kernel == "cuda":
+            from ..ops import sha256_cuda
+            launched = sha256_cuda.sweep_launch(
+                ext, base, count, difficulty_bits, device=self.device,
+                early_exit=True)
+
+            def read() -> tuple[int, int]:
+                return launched.result()
+            read.ready = launched.ready
+            return read
+        return functools.partial(self._searcher(difficulty_bits), ext, base,
+                                 count, early_exit=True)
+
     def launch(self, header80: bytes, difficulty_bits: int,
                start_nonce: int = 0, max_count: int = NONCE_SPACE):
         """Starts the search and returns the function that finishes it.
-        With the CUDA kernel the sweep is on the device when this returns
-        and the finish waits for its 8-byte result; with the plain version
-        the finish does all the work."""
+        With the CUDA kernel the sweep (in a world of processes, this
+        rank's slice of the first round) is on the device when this
+        returns, the finish waits for its 8-byte result, and the finish
+        carries ``ready`` (see ``_start``); with the plain version the
+        finish does all the work."""
         # Fault-injection hook: raise/hang fire before any device work,
         # corrupt/partial damage the finished result.
         fault = injection.check("backend.cuda.dispatch",
                                 difficulty=difficulty_bits)
         end = min(start_nonce + max_count, NONCE_SPACE)
-        if start_nonce >= end:
-            read = None
-        else:
+        with span("backend.cuda.dispatch", difficulty=difficulty_bits):
             # Per-template precompute on the host, once per search.
-            ext = extend_midstate(*core.header_midstate(header80))
-            if self.effective_kernel == "cuda":
-                from ..ops import sha256_cuda
-                out = sha256_cuda.sweep_launch(
-                    ext, start_nonce, end - start_nonce, difficulty_bits,
-                    device=self.device, early_exit=True)
-                read = functools.partial(sha256_cuda.read_result, out)
+            ext = (extend_midstate(*core.header_midstate(header80))
+                   if start_nonce < end else None)
+            if self.group is None:
+                read = self._start(ext, start_nonce, end - start_nonce,
+                                   difficulty_bits)
             else:
-                read = functools.partial(
-                    self._searcher(difficulty_bits), ext, start_nonce,
-                    end - start_nonce, early_exit=True)
+                read = self._start_world(ext, start_nonce, end,
+                                         difficulty_bits)
 
         def finish() -> SearchResult:
-            res = (SearchResult(None, None, 0) if read is None
-                   else self._result(header80, start_nonce, end, *read()))
+            count, best = read()
+            with span("backend.cuda.host_tail"):
+                res = self._result(header80, start_nonce, end, count, best)
             return res if fault is None else \
                 _faulted_result(fault, res, start_nonce)
+        if hasattr(read, "ready"):
+            finish.ready = read.ready
         return finish
+
+    def _start_world(self, ext, start: int, end: int, difficulty_bits: int):
+        """The search of one rank in a world of processes: this rank's
+        slice of each round, a winner-select over the group after each,
+        until a round's summed count is above 0; then the tail past the
+        last whole round, swept whole by every rank. Starts the first
+        round's slice; returns the function that runs the rest and gives
+        the (count, min_nonce) of the whole search."""
+        size, b = self.round_size, self.batch_size
+        n_rounds = device_rounds(start, end, size)
+        device_end = start + n_rounds * size
+
+        def rank_slice(r: int):
+            lo = start + r * size + self.rank * b
+            return self._start(ext, lo, min(lo + b, end) - lo,
+                               difficulty_bits)
+
+        first = rank_slice(0) if n_rounds else None
+
+        def run() -> tuple[int, int]:
+            read = first
+            for r in range(n_rounds):
+                if read is None:
+                    read = rank_slice(r)
+                count, best = winner_select(*read(), self.group)
+                read = None
+                if count > 0:
+                    return count, best
+            return self._start(ext, device_end, end - device_end,
+                               difficulty_bits)()
+        if first is not None and hasattr(first, "ready"):
+            run.ready = first.ready
+        return run
 
     def search(self, header80: bytes, difficulty_bits: int,
                start_nonce: int = 0, max_count: int = NONCE_SPACE
@@ -153,7 +266,7 @@ class CudaBackend(MinerBackend):
     def _result(self, header80: bytes, start: int, end: int, count: int,
                 best: int) -> SearchResult:
         winner = best if count > 0 else None
-        tried = reference_hashes_tried(start, end, self.batch_size, winner)
+        tried = reference_hashes_tried(start, end, self.round_size, winner)
         if winner is None:
             return SearchResult(None, None, tried)
         return SearchResult(winner,

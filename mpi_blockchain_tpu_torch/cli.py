@@ -8,6 +8,11 @@
     python -m mpi_blockchain_tpu_torch mine --difficulty 20 --blocks 1000 \
         --checkpoint ck.bin --checkpoint-every 10 [--resume ck.bin]
     python -m mpi_blockchain_tpu_torch mine --fault-plan plan.json|seed:N
+    python -m mpi_blockchain_tpu_torch mine --preset tpu-mesh8 [--fused]
+    python -m mpi_blockchain_tpu_torch mine --difficulty 20 --blocks 10 \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
+    python -m mpi_blockchain_tpu_torch bench --mode sweep --seconds 5
+    python -m mpi_blockchain_tpu_torch bench --mode chain --blocks 1000
     python -m mpi_blockchain_tpu_torch verify --chain chain.bin --difficulty 20
     python -m mpi_blockchain_tpu_torch info
 
@@ -18,7 +23,14 @@ with no card it fails with a clean error instead of running elsewhere.
 reference writes, so the two packages' chain files compare with ``cmp``.
 ``mine --fused`` mines ``--blocks-per-call`` blocks per host call with the
 fused k-block miner (``models/fused.py``); as in the reference, its
-summary has no ``hashes_tried``.
+summary has no ``hashes_tried``. ``--miners N`` splits each round over N
+logical miners in this process; ``--coordinator/--num-processes/
+--process-id`` make this process one miner of a world of processes
+(gloo, ``parallel/distributed.py``), every process running the same
+command, and rank 0 alone writes ``--out``, ``--checkpoint`` and the
+summary. ``bench`` measures the sweep rate (``--mode sweep``) or a whole
+chain's wall (``--mode chain``) and prints one JSON payload
+(``bench_lib.py``).
 
 ``mine`` searches through the resilience layer's ``ResilientBackend``
 (retries, host re-validation of every winner, the step-down ladder
@@ -108,11 +120,71 @@ def _resume(miner, path: str, cfg) -> str | None:
     return None
 
 
+def _init_world(args, cfg):
+    """Joins the world of processes when --coordinator is given: every
+    process runs this same command, one miner on its card
+    (``cuda:<rank % device_count>``). Returns (cfg, group, is_main)."""
+    if not args.coordinator:
+        return cfg, None, True
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.distributed import init_distributed
+    from .resilience.policy import call_with_retry
+
+    # A slow-to-bind peer is the classic transient launch fault: retry
+    # under the distributed.init budget before giving up (rc 2).
+    call_with_retry(
+        lambda: init_distributed(args.coordinator, args.num_processes,
+                                 args.process_id),
+        site="distributed.init")
+    if cfg.device == "cuda" and torch.cuda.is_available():
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    cfg = dataclasses.replace(cfg, backend="cuda",
+                              n_miners=dist.get_world_size())
+    return cfg, dist.group.WORLD, dist.get_rank() == 0
+
+
+def _agree_on_resume(miner, err: str | None) -> str | None:
+    """In a world of processes every rank must resume from the same chain,
+    or they run different numbers of rounds and the collectives hang:
+    compare (ok, height, tip) across the ranks before the first search."""
+    import torch
+    import torch.distributed as dist
+
+    ok = err is None
+    tip = miner.node.tip_hash[:8] if ok else bytes(8)
+    state = torch.tensor([int(ok), miner.node.height if ok else -1,
+                          int.from_bytes(tip, "big") >> 1],
+                         dtype=torch.int64)
+    rows = [torch.zeros_like(state) for _ in range(dist.get_world_size())]
+    dist.all_gather(rows, state)
+    if any(not torch.equal(r, rows[0]) for r in rows):
+        return (f"resume state diverges across processes (this process: "
+                f"{err or 'ok'})")
+    return err
+
+
 def cmd_mine(args) -> int:
+    cfg = _config_from(args)
+    if args.fused and args.coordinator:
+        raise ConfigError(
+            "--fused with --coordinator needs a collective inside the "
+            "k-block call, which is not ported yet (ROADMAP §A); drop "
+            "--fused to mine as a world of processes")
+    cfg, group, is_main = _init_world(args, cfg)
+    try:
+        return _mine(args, cfg, group, is_main)
+    finally:
+        if group is not None:
+            from .parallel.distributed import shutdown_distributed
+            shutdown_distributed()
+
+
+def _mine(args, cfg, group, is_main: bool) -> int:
     from .models.fused import FusedMiner
     from .models.miner import Miner
 
-    cfg = _config_from(args)
     if args.verbose:
         logging.basicConfig(level=logging.DEBUG, stream=sys.stderr,
                             format="%(message)s")
@@ -125,10 +197,15 @@ def cmd_mine(args) -> int:
                               "(where to save)")
     if args.fused:
         miner = FusedMiner(cfg, blocks_per_call=args.blocks_per_call)
+    elif group is not None:
+        from .backend import backend_from_config
+        miner = Miner(cfg, backend=backend_from_config(cfg, group=group))
     else:
         miner = Miner(cfg)
     if args.resume:
         err = _resume(miner, args.resume, cfg)
+        if group is not None:
+            err = _agree_on_resume(miner, err)
         if err is not None:
             print(json.dumps({"event": "chain_mined", "error": err},
                              sort_keys=True))
@@ -136,7 +213,8 @@ def cmd_mine(args) -> int:
     # --blocks is the target height, so a resumed run mines the rest.
     remaining = max(0, cfg.n_blocks - miner.node.height)
     save = None
-    if args.checkpoint_every:
+    # Every rank of a world mines the same chain; only rank 0 writes it.
+    if args.checkpoint_every and is_main:
         from .resilience.policy import call_with_retry
         from .utils.checkpoint import save_chain
 
@@ -160,6 +238,8 @@ def cmd_mine(args) -> int:
                     save(rec.height)
         miner.mine_chain(remaining, on_block=on_block)
     wall = time.perf_counter() - t0
+    if not is_main:      # the other ranks mine but stay silent
+        return 0
     if args.out:
         with open(args.out, "wb") as f:
             f.write(miner.node.save())
@@ -233,11 +313,36 @@ def cmd_verify(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_bench(args) -> int:
+    from .bench_lib import bench_chain, run_bench
+
+    if args.mode == "chain":
+        result = bench_chain(n_blocks=args.blocks,
+                             difficulty_bits=args.difficulty,
+                             batch_pow2=(args.batch_pow2
+                                         if args.batch_pow2 is not None
+                                         else 24),
+                             blocks_per_call=args.blocks_per_call,
+                             n_miners=args.miners, kernel=args.kernel,
+                             device=args.device)
+    else:
+        # The raw sweep has no difficulty to track, so "auto" falls back
+        # to the launch-amortizing default.
+        pow2 = args.batch_pow2 if isinstance(args.batch_pow2, int) else 28
+        result = run_bench(backend=args.backend, seconds=args.seconds,
+                           batch_pow2=pow2, n_miners=args.miners,
+                           kernel=args.kernel, device=args.device)
+    print(json.dumps(result, sort_keys=True))
+    return 0
+
+
 def cmd_info(args) -> int:
-    """PyTorch, CUDA and card facts, and whether the kernel can build."""
+    """PyTorch, CUDA and card facts, whether the kernel can build, and
+    this process's place in its world."""
     import torch
 
     from .ops.sha256_cuda import find_nvcc
+    from .parallel.distributed import world_info
 
     available = torch.cuda.is_available()
     print(json.dumps({
@@ -247,6 +352,7 @@ def cmd_info(args) -> int:
         "device_count": torch.cuda.device_count() if available else 0,
         "device_name": torch.cuda.get_device_name(0) if available else None,
         "nvcc": find_nvcc(),
+        **world_info(),
     }, sort_keys=True))
     return 0
 
@@ -263,8 +369,9 @@ def main(argv: list[str] | None = None) -> int:
                         help="leading-zero bits (default 16)")
     p_mine.add_argument("--blocks", type=int, default=10)
     p_mine.add_argument("--miners", type=int, default=1,
-                        help="CPU ranks of the cpu backend (the cuda "
-                             "backend mines on one device)")
+                        help="miners that split each round: C++ ranks of "
+                             "the cpu backend, logical miners of the cuda "
+                             "backend in this process")
     p_mine.add_argument("--backend", choices=BACKENDS, default="cuda")
     p_mine.add_argument("--kernel", choices=KERNELS, default="auto",
                         help="sweep kernel of the cuda backend: the CUDA "
@@ -307,12 +414,48 @@ def main(argv: list[str] | None = None) -> int:
     p_mine.add_argument("--metrics-dump", metavar="PATH",
                         help="write the run's metrics (Prometheus text) "
                              "here on every exit path")
+    p_mine.add_argument("--coordinator", metavar="HOST:PORT",
+                        help="multi-process launch: rank 0's address "
+                             "(run the same command in every process; "
+                             "the mpirun -np N equivalent, over gloo)")
+    p_mine.add_argument("--num-processes", type=int, default=None,
+                        help="multi-process launch: world size")
+    p_mine.add_argument("--process-id", type=int, default=None,
+                        help="multi-process launch: this process's rank")
     p_mine.set_defaults(fn=cmd_mine)
 
     p_verify = sub.add_parser("verify", help="validate a saved chain file")
     p_verify.add_argument("--chain", required=True)
     p_verify.add_argument("--difficulty", type=int, required=True)
     p_verify.set_defaults(fn=cmd_verify)
+
+    p_bench = sub.add_parser(
+        "bench", help="sweep rate (--mode sweep) or a whole chain's wall "
+                      "(--mode chain)")
+    p_bench.add_argument("--mode", choices=["sweep", "chain"],
+                         default="sweep",
+                         help="sweep: the raw rate for --seconds; chain: "
+                              "mine --blocks at --difficulty with the fused "
+                              "miner (--backend/--seconds ignored)")
+    p_bench.add_argument("--backend", choices=BACKENDS, default="cuda")
+    p_bench.add_argument("--seconds", type=float, default=5.0)
+    # Sweep default 28: one launch amortizes its overhead only at large
+    # batches. Chain default 24: the early-exit sweet spot at difficulty
+    # 24. "auto" (chain mode) sizes the batch to the difficulty.
+    p_bench.add_argument("--batch-pow2", type=_batch_pow2_arg, default=None)
+    p_bench.add_argument("--miners", type=int, default=1)
+    p_bench.add_argument("--kernel", choices=KERNELS, default="auto")
+    p_bench.add_argument("--blocks", type=int, default=1000,
+                         help="chain mode: blocks to mine")
+    p_bench.add_argument("--difficulty", type=int, default=24,
+                         help="chain mode: leading-zero bits")
+    p_bench.add_argument("--blocks-per-call", type=int, default=100)
+    p_bench.add_argument("--device", choices=DEVICES, default="cuda",
+                         help="torch device; the CPU only when asked for")
+    p_bench.add_argument("--metrics-dump", metavar="PATH",
+                         help="write the run's metrics (Prometheus text) "
+                              "here on every exit path")
+    p_bench.set_defaults(fn=cmd_bench)
 
     p_info = sub.add_parser("info", help="torch, CUDA and card facts")
     p_info.set_defaults(fn=cmd_info)

@@ -57,7 +57,7 @@ class MinerConfig:
     difficulty_bits: int = 16
     n_blocks: int = 10
     batch_pow2: int | str = 20    # log2(nonces per sweep round), or "auto"
-    n_miners: int = 1             # CPU ranks (backend "cpu"); 1 on "cuda"
+    n_miners: int = 1             # miners that split each round
     backend: str = "cuda"         # {"cpu", "cuda"}
     kernel: str = "auto"          # sweep kernel: {"auto", "torch", "cuda"}
     device: str = "cuda"          # torch device of the "cuda" backend

@@ -22,10 +22,20 @@ back through a pinned host buffer and a CUDA event, so the host validates
 batch i while later calls run. A k-block call synchronizes nothing; the
 host waits once per call, for its nonces.
 
+With ``n_miners`` N > 1 in one process (the reference's mesh of N
+devices), a round covers N x B nonces and each block's sweep range ends
+at the last whole round below 2^32, as the reference's round loop does;
+the lowest-nonce winner does not depend on N, so the launches do not
+change. A world of processes would need a collective inside the k-block
+call; it is not ported (the CLI refuses ``--fused`` with
+``--coordinator``).
+
 The reference's block tracing and profiler calls are not ported, as in
-``models/miner.py``, nor its mesh (one device here). The recovery search
-goes through ``backend_from_config``, the resilient backend: retries,
-host re-validation and the step-down ladder, as in the reference.
+``models/miner.py``. Its spans are: ``fused.dispatch`` around the
+enqueue of a k-block call, ``miner.append`` around each C++ append. The
+recovery search goes through ``backend_from_config``, the resilient
+backend: retries, host re-validation and the step-down ladder, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from ..backend.cuda import resolve_device
 from ..config import MAX_EXTRA_NONCE, ConfigError, MinerConfig, \
     extend_payload
 from ..ops import resolve_kernel, sha256_block, sha256_cuda
+from ..telemetry.spans import span
 
 _LOGGER = logging.getLogger("mpi_blockchain_tpu_torch")
 NONCE_SPACE = 1 << 32
@@ -54,21 +65,23 @@ def _words_be(digest32: bytes) -> np.ndarray:
     return np.frombuffer(digest32, ">u4").astype(np.uint32)
 
 
-def sweep_cap(batch_pow2: int, max_rounds: int | None = None) -> int:
+def sweep_cap(batch_pow2: int, max_rounds: int | None = None,
+              n_miners: int = 1) -> int:
     """End of each block's sweep range [0, cap): the reference's round
-    loop covers ``max_rounds`` rounds of 2^batch_pow2 nonces, or the whole
-    nonce space, and never past 2^32."""
+    loop covers ``max_rounds`` rounds of n_miners x 2^batch_pow2 nonces,
+    or every whole round below 2^32, and never past 2^32."""
+    round_size = n_miners << batch_pow2
     if max_rounds is None:
-        return NONCE_SPACE
-    if max_rounds < 1:
+        max_rounds = NONCE_SPACE // round_size
+    elif max_rounds < 1:
         raise ConfigError(f"max_rounds must be >= 1, got {max_rounds}")
-    return min(max_rounds << batch_pow2, NONCE_SPACE)
+    return min(min(max_rounds, 0xFFFFFFFF) * round_size, NONCE_SPACE)
 
 
 def make_fused_miner(k_blocks: int, batch_pow2: int, difficulty_bits: int,
                      *, kernel: str = "auto",
                      device: str | torch.device = "cuda",
-                     max_rounds: int | None = None):
+                     max_rounds: int | None = None, n_miners: int = 1):
     """The k-block miner on ``device``.
 
     Returns ``fn(prev_words (8,), data_words (k, 8), start_height) ->
@@ -82,7 +95,7 @@ def make_fused_miner(k_blocks: int, batch_pow2: int, difficulty_bits: int,
     """
     device = resolve_device(device)
     kernel = resolve_kernel(kernel, device)
-    cap = sweep_cap(batch_pow2, max_rounds)
+    cap = sweep_cap(batch_pow2, max_rounds, n_miners)
 
     def fn(prev_words, data_words, start_height: int):
         if tuple(data_words.shape) != (k_blocks, 8):
@@ -141,11 +154,13 @@ class FusedMiner:
         if blocks_per_call < 1:
             raise ConfigError(
                 f"blocks_per_call must be >= 1, got {blocks_per_call}")
-        if config.backend != "cuda" or config.n_miners != 1:
+        if config.backend != "cuda":
             raise ConfigError(
-                f"the fused miner runs the cuda backend on one device, not "
-                f"backend={config.backend!r} with n_miners="
-                f"{config.n_miners}")
+                f"the fused miner runs the cuda backend, not "
+                f"backend={config.backend!r}")
+        if config.n_miners < 1:
+            raise ConfigError(
+                f"n_miners must be >= 1, got {config.n_miners}")
         self.config = config
         self.device = resolve_device(config.device)
         self.effective_kernel = resolve_kernel(config.kernel, self.device)
@@ -169,7 +184,7 @@ class FusedMiner:
             fn = self._fns[k] = make_fused_miner(
                 k, self.config.effective_batch_pow2,
                 self.config.difficulty_bits, kernel=self.effective_kernel,
-                device=self.device)
+                device=self.device, n_miners=self.config.n_miners)
         return fn
 
     def warmup(self, k: int | None = None) -> None:
@@ -223,7 +238,9 @@ class FusedMiner:
             payloads = [self.config.payload(height + j + 1)
                         for j in range(k)]
             data = np.stack([_words_be(core.sha256d(p)) for p in payloads])
-            nonces, prev = self._fn(k)(prev, self._to_device(data), height)
+            with span("fused.dispatch", k=k, height=height):
+                nonces, prev = self._fn(k)(prev, self._to_device(data),
+                                           height)
             batches.append(_Batch(height, payloads, _Readback(nonces)))
             height += k
             remaining -= k
@@ -238,7 +255,10 @@ class FusedMiner:
                 dispatch_one()
             for j, payload in enumerate(batch.payloads):
                 cand = self.node.make_candidate(payload)
-                if not self.node.submit(core.set_nonce(cand, nonces[j])):
+                with span("miner.append", height=batch.height + j + 1):
+                    accepted = self.node.submit(core.set_nonce(cand,
+                                                               nonces[j]))
+                if not accepted:
                     # The calls still in flight mined on a tip that is now
                     # wrong; their results are dropped.
                     self._recover_block(batch.height + j + 1, nonces[j])

@@ -23,8 +23,14 @@ re-validates the speculated candidate and window set against the C++ node
 The default backend is ``backend_from_config``'s ``ResilientBackend``,
 whose ``search_async`` puts each sweep on the card before it returns and
 reads it back when the driver consumes it, so the host's validation and
-append of block N overlap the sweep for block N + 1.
-Each appended block sets the ``miner_heartbeat`` gauge to the height. The
+append of block N overlap the sweep for block N + 1. The wait for a
+consumed sweep is bounded by ``MPIBT_DISPATCH_TIMEOUT``, as in the
+reference: a sweep wedged on the card fails the run loudly.
+
+Each appended block sets the ``miner_heartbeat`` gauge to the height.
+Both drivers carry the reference's spans: ``miner.block`` around a block,
+``miner.sweep`` around each search (in the pipelined driver, around the
+consume of a dispatch), ``miner.append`` around the C++ append. The
 reference's block tracing and pipeline profiler are not ported yet.
 """
 from __future__ import annotations
@@ -42,9 +48,17 @@ from .. import core
 from ..backend import MinerBackend, backend_from_config
 from ..config import MAX_EXTRA_NONCE, MinerConfig, extend_payload
 from ..telemetry import heartbeat
-from ..telemetry.events import emit_event
+from ..telemetry.events import emit_event, env_number
+from ..telemetry.spans import span
 
 _LOGGER = logging.getLogger("mpi_blockchain_tpu_torch")
+
+#: Budget (seconds) for one in-flight dispatch at the pipelined consume
+#: point: a sweep that has not completed by then is taken as wedged and
+#: fails the run. 900 s is "the dispatch is gone", not "the sweep is
+#: slow". The reference's knob, read as the reference reads it.
+DISPATCH_TIMEOUT_S = env_number("MPIBT_DISPATCH_TIMEOUT", 900.0,
+                                cast=float, minimum=1e-3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,32 +172,40 @@ class Miner:
         data = self.payload_for(height)
         t0 = time.perf_counter()
         tried = 0
-        for extra_nonce in range(MAX_EXTRA_NONCE + 1):
-            cand = self.node.make_candidate(extend_payload(data, extra_nonce))
-            res = None
-            # Windows ascend, so the first one holding a qualifier yields
-            # the lowest nonce in this miner's space.
-            for w_start, w_end in self.search_windows():
-                res = self.backend.search(cand, self.config.difficulty_bits,
-                                          start_nonce=w_start,
-                                          max_count=w_end - w_start)
-                tried += res.hashes_tried
+        with span("miner.block", height=height):
+            for extra_nonce in range(MAX_EXTRA_NONCE + 1):
+                cand = self.node.make_candidate(
+                    extend_payload(data, extra_nonce))
+                res = None
+                with span("miner.sweep", height=height,
+                          extra_nonce=extra_nonce):
+                    # Windows ascend, so the first one holding a
+                    # qualifier yields the lowest nonce in this miner's
+                    # space.
+                    for w_start, w_end in self.search_windows():
+                        res = self.backend.search(
+                            cand, self.config.difficulty_bits,
+                            start_nonce=w_start, max_count=w_end - w_start)
+                        tried += res.hashes_tried
+                        if res.nonce is not None:
+                            break
+                if res is None:
+                    raise RuntimeError(
+                        "search_windows yielded no nonce windows")
                 if res.nonce is not None:
                     break
-            if res is None:
-                raise RuntimeError("search_windows yielded no nonce windows")
-            if res.nonce is not None:
-                break
-            self._log({"event": "nonce_space_exhausted", "height": height,
-                       "extra_nonce": extra_nonce + 1})
-        else:
-            raise RuntimeError(
-                f"{MAX_EXTRA_NONCE} consecutive empty nonce spaces at "
-                f"height {height} — difficulty "
-                f"{self.config.difficulty_bits} is unsatisfiably high")
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        res = dataclasses.replace(res, hashes_tried=tried)
-        if not self.node.submit(core.set_nonce(cand, res.nonce)):
+                self._log({"event": "nonce_space_exhausted",
+                           "height": height, "extra_nonce": extra_nonce + 1})
+            else:
+                raise RuntimeError(
+                    f"{MAX_EXTRA_NONCE} consecutive empty nonce spaces at "
+                    f"height {height} — difficulty "
+                    f"{self.config.difficulty_bits} is unsatisfiably high")
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            res = dataclasses.replace(res, hashes_tried=tried)
+            with span("miner.append", height=height):
+                accepted = self.node.submit(core.set_nonce(cand, res.nonce))
+        if not accepted:
             raise RuntimeError(f"backend returned invalid block at {height}")
         rec = BlockRecord(height=height, nonce=res.nonce,
                           hash=res.hash.hex(), wall_ms=wall_ms,
@@ -232,9 +254,25 @@ class Miner:
     @staticmethod
     def _consume(d: _SweepDispatch):
         """Blocks on one dispatch's result, strictly in issue order (the
-        lowest-nonce rule). Nothing bounds the wait: the resilient
-        backend's future reads the sweep back on this thread."""
-        return d.future.result()
+        lowest-nonce rule), bounded by ``MPIBT_DISPATCH_TIMEOUT`` so that a
+        wedged sweep surfaces as a loud failure instead of a silent hang.
+        The resilient backend's future polls the sweep on the card against
+        the deadline, then reads it back on this thread."""
+        with span("miner.sweep", height=d.height, extra_nonce=d.template):
+            try:
+                return d.future.result(timeout=DISPATCH_TIMEOUT_S)
+            except concurrent.futures.TimeoutError:
+                if d.future.done():
+                    # The sweep itself raised a TimeoutError (the classes
+                    # alias): a backend failure, not a wedged wait; it
+                    # surfaces with its own traceback.
+                    raise
+                raise RuntimeError(
+                    f"dispatch wedged: sweep for height {d.height} "
+                    f"(template {d.template}, window {d.window_index}) "
+                    f"returned nothing within {DISPATCH_TIMEOUT_S}s "
+                    f"(MPIBT_DISPATCH_TIMEOUT) — treating the backend as "
+                    f"hung") from None
 
     @staticmethod
     def _discard_speculative(pending) -> None:
@@ -324,48 +362,54 @@ class Miner:
                   else advance(pending[-1].template,
                                pending[-1].window_index))
         tried = 0
-        while True:
-            while cursor is not None and len(pending) < self.PIPELINE_DEPTH:
-                e, w = cursor
+        with span("miner.block", height=height):
+            while True:
+                while cursor is not None and \
+                        len(pending) < self.PIPELINE_DEPTH:
+                    e, w = cursor
+                    pending.append(self._issue_sweep(
+                        height, e, windows, w,
+                        lambda e=e: self._candidate(cands, data, e)))
+                    cursor = advance(e, w)
+                d = pending.popleft()
+                r = self._consume(d)
+                tried += r.hashes_tried
+                if r.nonce is not None:
+                    res, win_d = r, d
+                    break
+                if windows.get(d.window_index + 1) is None:
+                    # This template's whole window set came back empty:
+                    # the shared rollover rule (config.extend_payload).
+                    self._log({"event": "nonce_space_exhausted",
+                               "height": height,
+                               "extra_nonce": d.template + 1})
+                    if d.template >= MAX_EXTRA_NONCE:
+                        self._discard_speculative(pending)
+                        raise RuntimeError(
+                            f"{MAX_EXTRA_NONCE} consecutive empty nonce "
+                            f"spaces at height {height} — difficulty "
+                            f"{self.config.difficulty_bits} is "
+                            f"unsatisfiably high")
+                    if cursor is None and not pending:
+                        # The no-winner is confirmed now, so the next
+                        # template is no longer a speculation.
+                        cursor = (d.template + 1, 0)
+            res = dataclasses.replace(res, hashes_tried=tried)
+            # A winner falsifies every queued no-winner speculation.
+            self._discard_speculative(pending)
+            if blocks_left > 1:
+                # Issue the next block's first sweep from the winner's
+                # digest, the prev_hash the C++ append is about to
+                # install; it is re-validated at the next block boundary.
+                nh, ndata = height + 1, self.payload_for(height + 1)
                 pending.append(self._issue_sweep(
-                    height, e, windows, w,
-                    lambda e=e: self._candidate(cands, data, e)))
-                cursor = advance(e, w)
-            d = pending.popleft()
-            r = self._consume(d)
-            tried += r.hashes_tried
-            if r.nonce is not None:
-                res, win_d = r, d
-                break
-            if windows.get(d.window_index + 1) is None:
-                # This template's whole window set came back empty: the
-                # shared rollover rule (config.extend_payload).
-                self._log({"event": "nonce_space_exhausted",
-                           "height": height, "extra_nonce": d.template + 1})
-                if d.template >= MAX_EXTRA_NONCE:
-                    self._discard_speculative(pending)
-                    raise RuntimeError(
-                        f"{MAX_EXTRA_NONCE} consecutive empty nonce spaces "
-                        f"at height {height} — difficulty "
-                        f"{self.config.difficulty_bits} is unsatisfiably "
-                        f"high")
-                if cursor is None and not pending:
-                    # The no-winner is confirmed now, so the next template
-                    # is no longer a speculation.
-                    cursor = (d.template + 1, 0)
-        res = dataclasses.replace(res, hashes_tried=tried)
-        # A winner falsifies every queued no-winner speculation.
-        self._discard_speculative(pending)
-        if blocks_left > 1:
-            # Issue the next block's first sweep from the winner's digest,
-            # the prev_hash the C++ append is about to install; it is
-            # re-validated at the next block boundary.
-            nh, ndata = height + 1, self.payload_for(height + 1)
-            pending.append(self._issue_sweep(
-                nh, 0, windows, 0,
-                lambda: core.make_candidate_header(
-                    res.hash, ndata, nh, self.config.difficulty_bits)))
-        if not self.node.submit(core.set_nonce(win_d.cand, res.nonce)):
+                    nh, 0, windows, 0,
+                    lambda: core.make_candidate_header(
+                        res.hash, ndata, nh, self.config.difficulty_bits)))
+            with span("miner.append", height=height):
+                accepted = self.node.submit(
+                    core.set_nonce(win_d.cand, res.nonce))
+        if not accepted:
             self._discard_speculative(pending)
             raise RuntimeError(f"backend returned invalid block at {height}")
         rec = BlockRecord(height=height, nonce=res.nonce,

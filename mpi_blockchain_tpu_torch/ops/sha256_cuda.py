@@ -336,13 +336,32 @@ class _FreshBuffers(threading.local):
 _fresh_buffers = _FreshBuffers()
 
 
+class LaunchedSweep:
+    """A sweep on the card: its result buffer, and an event recorded on its
+    stream right after the launch. ``ready`` says, without blocking,
+    whether the sweep is done; ``result`` waits for it and gives (count,
+    min_nonce). A CUDA error reported at either raises ``KernelError``."""
+
+    __slots__ = ("out", "event")
+
+    def __init__(self, out: torch.Tensor, event: torch.cuda.Event):
+        self.out, self.event = out, event
+
+    def ready(self) -> bool:
+        with kernel_errors("sha256d_sweep completion query"):
+            return self.event.query()
+
+    def result(self) -> tuple[int, int]:
+        return read_result(self.out)
+
+
 def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
                  device: torch.device | str, early_exit: bool = False
-                 ) -> torch.Tensor:
+                 ) -> LaunchedSweep:
     """Enqueues one sweep of [base, base + count) on a CUDA ``device`` into
-    a result buffer of its own and returns the buffer, without waiting:
-    ``read_result`` of it waits and gives (count, min_nonce). A sweep on
-    the device while the host goes on; ``sweep`` is both at once."""
+    a result buffer of its own and returns it as a ``LaunchedSweep``,
+    without waiting: a sweep on the device while the host goes on;
+    ``sweep`` is both at once."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ConfigError(f"sweep_launch runs on a CUDA device, not "
@@ -356,7 +375,9 @@ def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
         out = _fresh_buffers.get(device).clone()
         launch(ext_host, base, count, difficulty_bits, out,
                early_exit=early_exit)
-    return out
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+    return LaunchedSweep(out, event)
 
 
 def sweep(ext, base: int, count: int, difficulty_bits: int, *,
@@ -379,8 +400,8 @@ def sweep(ext, base: int, count: int, difficulty_bits: int, *,
     if device.type != "cuda":
         raise ConfigError(f"the sweep runs on a CUDA device or the CPU, "
                           f"not {device}")
-    return read_result(sweep_launch(ext, base, count, difficulty_bits,
-                                    device=device, early_exit=early_exit))
+    return sweep_launch(ext, base, count, difficulty_bits, device=device,
+                        early_exit=early_exit).result()
 
 
 #: What one Hopper SM retires per clock, in thread-instructions: four

@@ -36,6 +36,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import threading
+import time
 from typing import Callable
 
 from .. import core
@@ -64,8 +65,42 @@ def _injected(error: BaseException | None) -> bool:
 
 Rung = tuple[str, Callable[[], MinerBackend]]
 
+#: Sleep between two polls of a dispatch's completion while a deadline
+#: bounds the wait; None polls again at once, with no sleep. On the card
+#: the blocking read-back spins in the driver, and a poll that sleeps
+#: between queries cost host time a block: 1.1 ms more in sleeps of 20 us,
+#: 0.55 ms more with ``time.sleep(0)`` (``tools/dispatch_variants.py``;
+#: PERF.md). So the shipped poll spins, as the read-back does.
+POLL_S: float | None = None
 
-def ladder_from_config(config) -> list[Rung]:
+
+def _wait_ready(finish, deadline: float | None) -> None:
+    """Waits, until ``deadline`` (``time.monotonic()``), for the device
+    work behind a started search: a finish that carries ``ready`` (a
+    sweep on the card) is polled; one that carries none (the C++ sweep,
+    the plain version) has no device work to wait for. Raises
+    ``concurrent.futures.TimeoutError`` when the deadline passes first;
+    with no deadline, the finish's own read-back waits."""
+    ready = getattr(finish, "ready", None)
+    if ready is None or deadline is None:
+        return
+    while not _query(ready):
+        if time.monotonic() >= deadline:
+            raise concurrent.futures.TimeoutError(
+                "the dispatch's device work did not complete in time")
+        if POLL_S is not None:
+            time.sleep(POLL_S)
+
+
+def _query(ready) -> bool:
+    try:
+        return ready()
+    except Exception:
+        # A failed query: the finish's read-back reports the failure.
+        return True
+
+
+def ladder_from_config(config, group=None) -> list[Rung]:
     """The step-down ladder a MinerConfig implies, top rung first:
     ``cuda:<kernel>`` (the kernel ``config.kernel`` resolves to on the
     device) → ``cuda:torch`` → ``cpu``. ``cuda:torch`` is left out when the
@@ -73,7 +108,14 @@ def ladder_from_config(config) -> list[Rung]:
     ``cpu`` rung (retry only). Factories are lazy: a lower rung is built
     only when the ladder steps down onto it. The device is resolved here,
     once, to an explicit ``cuda:<index>`` (or raises ``ConfigError`` with
-    no card), so every rung uses the same one whatever thread builds it."""
+    no card), so every rung uses the same one whatever thread builds it.
+
+    The cuda rungs split each round over ``config.n_miners`` miners, in
+    ``group`` when one is given; the ``cpu`` rung runs that many C++ ranks
+    in this process, as the reference's does. In a world of processes a
+    retry or a step-down on one rank is not seen by the others, so the
+    ranks' collectives can fall out of step; the reference has the same
+    exposure, and its elastic mesh is the answer (not ported yet)."""
     from ..backend import get_backend
 
     def cpu_factory():
@@ -92,7 +134,8 @@ def ladder_from_config(config) -> list[Rung]:
     def cuda_factory(kernel):
         return lambda: get_backend("cuda",
                                    batch_pow2=config.effective_batch_pow2,
-                                   kernel=kernel, device=device)
+                                   kernel=kernel, device=device,
+                                   n_miners=config.n_miners, group=group)
 
     rungs: list[Rung] = [(f"cuda:{kernel}", cuda_factory(kernel))]
     if kernel != "torch":
@@ -180,12 +223,21 @@ class ResilientBackend(MinerBackend):
             self._pending.append(dispatch)
             return dispatch
 
-    def _finish_through(self, dispatch: "_Dispatch") -> None:
+    def _finish_through(self, dispatch: "_Dispatch",
+                        timeout: float | None = None) -> None:
         """Finishes pending dispatches in issue order until ``dispatch``
-        is done (cancelled ones are dropped)."""
+        is done (cancelled ones are dropped). With a ``timeout``, a
+        dispatch whose sweep is still on the card when it runs out stays
+        pending and ``concurrent.futures.TimeoutError`` is raised; the
+        read-back, re-validation and retries of a completed sweep are not
+        bounded."""
+        deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
             while not dispatch.done() and self._pending:
-                head = self._pending.popleft()
+                head = self._pending[0]
+                if not head.cancelled() and head.launched[0] == self._i:
+                    _wait_ready(head.launched[1], deadline)
+                self._pending.popleft()
                 if not head.set_running_or_notify_cancel():
                     continue
                 try:
@@ -288,10 +340,12 @@ class ResilientBackend(MinerBackend):
 
 class _Dispatch(concurrent.futures.Future):
     """A search started by ``ResilientBackend.search_async``. It completes
-    when its result (or exception) is asked for, on the asking thread; the
-    ``timeout`` of those calls does not bound the device's read-back.
-    Cancelling it before then drops it (the started sweep runs out on the
-    device unread)."""
+    when its result (or exception) is asked for, on the asking thread. The
+    ``timeout`` of those calls bounds the wait for the sweep on the card
+    (polled through the finish's ``ready``), so a wedged sweep raises
+    ``TimeoutError`` instead of hanging the read-back. Cancelling it
+    before then drops it (the started sweep runs out on the device
+    unread)."""
 
     def __init__(self, backend: ResilientBackend, launched: tuple,
                  args: tuple):
@@ -299,9 +353,9 @@ class _Dispatch(concurrent.futures.Future):
         self.backend, self.launched, self.args = backend, launched, args
 
     def result(self, timeout=None):
-        self.backend._finish_through(self)
+        self.backend._finish_through(self, timeout)
         return super().result(timeout)
 
     def exception(self, timeout=None):
-        self.backend._finish_through(self)
+        self.backend._finish_through(self, timeout)
         return super().exception(timeout)

@@ -24,10 +24,10 @@ injection counters reset at arm time, so a faulted run replays exactly.
 ``backend.tpu.dispatch`` renamed ``backend.cuda.dispatch``: a seed derives
 the reference's plan up to that one name. The port hooks
 ``backend.cuda.dispatch``, ``backend.cpu.search``, ``native.load``,
-``checkpoint.write`` and ``checkpoint.read``. The other sites belong to
-modules that are not ported yet (the simulation bus, the distributed
-world, the elastic mesh, the serving front door): a plan may name them,
-and they never fire.
+``checkpoint.write``, ``checkpoint.read`` and ``distributed.init``. The
+other sites belong to modules that are not ported yet (the simulation bus,
+the elastic mesh, the serving front door): a plan may name them, and they
+never fire.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ SITES = (
     "native.load",            # core/build.ensure_built, before the build
     "checkpoint.write",       # utils/checkpoint.save_chain
     "checkpoint.read",        # utils/checkpoint.load_chain
-    "distributed.init",       # not ported: the distributed world
+    "distributed.init",       # parallel/distributed.init_distributed
     "sim.churn",              # not ported: the vectorized simulation
     "parallel.collective",    # not ported: the elastic mesh
     "mesh.rank_death",        # not ported: the elastic mesh

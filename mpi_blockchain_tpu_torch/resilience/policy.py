@@ -11,10 +11,10 @@ deterministic jitter, per-layer budgets, one loud give-up signal.
   the CLI's clean error.
 
 The per-site table keeps the reference's entries for layers the port has
-not ported yet (distributed init, the mesh rebuild, the front door), so
-``policy_for`` gives the reference's budget for every site name.
-``call_with_retry`` is the one place dispatch and checkpoint I/O
-exceptions are caught and retried.
+not ported yet (the mesh rebuild, the front door), so ``policy_for`` gives
+the reference's budget for every site name. ``call_with_retry`` is the one
+place dispatch, distributed-init and checkpoint I/O exceptions are caught
+and retried.
 """
 from __future__ import annotations
 

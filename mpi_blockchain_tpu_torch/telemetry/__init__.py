@@ -1,19 +1,22 @@
-"""Telemetry of the port: a metrics registry and a JSON-lines event stream.
+"""Telemetry of the port: a metrics registry, spans and a JSON-lines
+event stream.
 
 The port's copy of the part of the reference's ``telemetry`` package that
-the resilience layer needs: counters and gauges on a process-local
-registry (``registry``), the event stream (``events``), a progress
-heartbeat gauge and a Prometheus dump. Histograms, spans, NVTX ranges,
-the profiler and the rest of the observability wait for a later slice of
-the port. All of it is host-side and standard library only.
+the port's layers use: counters, gauges and histograms on a process-local
+registry (``registry``), host spans filed as ``span_seconds``
+(``spans``), the event stream (``events``), a progress heartbeat gauge
+and a Prometheus dump. The flight recorder, the profiler capture and the
+rest of the observability wait for a later slice of the port. All of it
+is host-side and standard library only.
 """
 from __future__ import annotations
 
 import pathlib
 
 from .events import clear_events, emit_event, recent_events  # noqa: F401
-from .registry import (Counter, Gauge, MetricError,  # noqa: F401
-                       Registry, default_registry, reset)
+from .registry import (Counter, Gauge, Histogram,  # noqa: F401
+                       MetricError, Registry, default_registry, reset,
+                       set_telemetry_disabled, telemetry_disabled)
 
 
 def counter(name: str, help: str = "", **labels) -> Counter:
@@ -24,6 +27,19 @@ def counter(name: str, help: str = "", **labels) -> Counter:
 def gauge(name: str, help: str = "", **labels) -> Gauge:
     """Get-or-create a gauge on the default registry."""
     return default_registry().gauge(name, help=help, **labels)
+
+
+def histogram(name: str, help: str = "", **labels) -> Histogram:
+    """Get-or-create a histogram on the default registry."""
+    return default_registry().histogram(name, help=help, **labels)
+
+
+def span_seconds(name: str) -> float:
+    """Seconds the spans named ``name`` took in all (0 when none ran)."""
+    for m in default_registry().metrics():
+        if m.name == "span_seconds" and dict(m.labels).get("span") == name:
+            return m.sum
+    return 0.0
 
 
 def heartbeat(name: str) -> Gauge:

@@ -1,14 +1,16 @@
-"""Process-local metrics registry: counters and gauges.
+"""Process-local metrics registry: counters, gauges, histograms.
 
-The port's copy of the reference's ``telemetry/registry.py``, cut to what
-the resilience layer needs: counters, gauges, the get-or-create
-``Registry`` and its Prometheus text snapshot. Histograms, spans, the kill
-switch and the rest of the observability wait for a later slice of the
-port.
+The port's copy of the reference's ``telemetry/registry.py``: counters,
+gauges, histograms with a bounded deterministic reservoir, the
+get-or-create ``Registry`` with its span log and Prometheus text snapshot,
+and the kill switch that turns spans off.
 
 * **Host-only.** Metrics are plain Python objects mutated on the host.
 * **Thread-safe.** Any thread may count (the CPU backend's ranks run on a
   pool), so every mutation takes the metric's lock.
+* **Bounded.** Histograms keep exact count/sum/min/max plus a fixed-size
+  reservoir (seeded reservoir sampling, Vitter's algorithm R), so a
+  million observations cost the memory of a thousand.
 
 Identity is (name, sorted label items): ``counter("x", backend="cpu")``
 returns the same object on every call, and re-registering a name with a
@@ -16,10 +18,39 @@ different metric kind raises ``MetricError``.
 """
 from __future__ import annotations
 
+import collections
+import os
+import random
 import threading
 import time
+import zlib
 
 LabelItems = tuple[tuple[str, str], ...]
+
+# ---- the kill switch --------------------------------------------------------
+# MPIBT_TELEMETRY_OFF (or ``set_telemetry_disabled(True)``) turns every span
+# into a bare yield: no clock read, no stack push, nothing filed. It exists
+# to price the instrumentation itself, as in the reference.
+
+_telemetry_off = bool(os.environ.get("MPIBT_TELEMETRY_OFF"))
+
+
+def telemetry_disabled() -> bool:
+    return _telemetry_off
+
+
+def set_telemetry_disabled(flag: bool) -> bool:
+    """Flips the kill switch; returns the previous state (callers restore
+    it in a finally)."""
+    global _telemetry_off
+    prev = _telemetry_off
+    _telemetry_off = bool(flag)
+    return prev
+
+
+# Finished spans kept for inspection; bounded so a long run cannot grow the
+# registry without limit.
+SPAN_LOG_SIZE = 4096
 
 
 class MetricError(ValueError):
@@ -150,23 +181,118 @@ class Gauge(_Metric):
                 "age_s": None if age is None else round(age, 3)}
 
 
-# Prometheus TYPE keyword per metric kind.
-_PROM_TYPE = {"counter": "counter", "gauge": "gauge"}
+class Histogram(_Metric):
+    """Distribution with exact count/sum/min/max + a bounded reservoir.
+
+    Quantiles come from the reservoir (nearest rank on the sorted sample).
+    The reservoir uses Vitter's algorithm R with a per-metric crc32-seeded
+    RNG, so a run is exactly reproducible and no global RNG state is
+    touched.
+    """
+
+    kind = "histogram"
+    RESERVOIR_SIZE = 1024
+    QUANTILES = (0.5, 0.95, 0.99)
+
+    def __init__(self, name, help="", labels=(),
+                 reservoir_size: int | None = None):
+        super().__init__(name, help, labels)
+        self._count = 0
+        self._sum = 0.0
+        self._min = None
+        self._max = None
+        self._cap = (reservoir_size if reservoir_size is not None
+                     else self.RESERVOIR_SIZE)
+        self._reservoir: list[float] = []
+        seed = zlib.crc32(repr((name, labels)).encode())
+        self._rng = random.Random(seed)
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._count += 1
+            self._sum += value
+            if self._min is None or value < self._min:
+                self._min = value
+            if self._max is None or value > self._max:
+                self._max = value
+            if len(self._reservoir) < self._cap:
+                self._reservoir.append(value)
+            else:
+                j = self._rng.randrange(self._count)
+                if j < self._cap:
+                    self._reservoir[j] = value
+
+    @property
+    def count(self):
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self):
+        with self._lock:
+            return self._sum
+
+    def quantile(self, q: float) -> float | None:
+        """Nearest-rank quantile over the reservoir; None when empty."""
+        if not 0.0 <= q <= 1.0:
+            raise MetricError(f"quantile {q} outside [0, 1]")
+        with self._lock:
+            sample = sorted(self._reservoir)
+        if not sample:
+            return None
+        idx = min(int(q * len(sample)), len(sample) - 1)
+        return sample[idx]
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            stats = {"count": self._count, "sum": self._sum,
+                     "min": self._min, "max": self._max}
+        stats.update({f"p{int(q * 100)}": self.quantile(q)
+                      for q in self.QUANTILES})
+        return stats
+
+    def sample_lines(self) -> list[str]:
+        lines = []
+        for q in self.QUANTILES:
+            v = self.quantile(q)
+            if v is None:
+                continue
+            lines.append(
+                f"{self.name}"
+                f"{_render_labels(self.labels, (('quantile', str(q)),))} "
+                f"{_render_value(v)}")
+        lines.append(f"{self.name}_count{_render_labels(self.labels)} "
+                     f"{_render_value(self.count)}")
+        lines.append(f"{self.name}_sum{_render_labels(self.labels)} "
+                     f"{_render_value(self.sum)}")
+        return lines
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, "labels": dict(self.labels),
+                **self.snapshot()}
+
+
+# Prometheus TYPE keyword per metric kind (histograms render as summaries:
+# the reservoir gives quantiles, not fixed buckets).
+_PROM_TYPE = {"counter": "counter", "gauge": "gauge",
+              "histogram": "summary"}
 
 
 class Registry:
-    """Get-or-create metric store + the Prometheus exporter."""
+    """Get-or-create metric store + the span log + the Prometheus
+    exporter."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: dict[tuple[str, LabelItems], _Metric] = {}
+        self._spans = collections.deque(maxlen=SPAN_LOG_SIZE)
 
-    def _get(self, cls, name: str, help: str, labels: dict):
+    def _get(self, cls, name: str, help: str, labels: dict, **kwargs):
         key = (name, _label_items(labels))
         with self._lock:
             m = self._metrics.get(key)
             if m is None:
-                m = cls(name, help=help, labels=key[1])
+                m = cls(name, help=help, labels=key[1], **kwargs)
                 self._metrics[key] = m
             elif not isinstance(m, cls):
                 raise MetricError(
@@ -181,6 +307,26 @@ class Registry:
 
     def gauge(self, name: str, help: str = "", **labels) -> Gauge:
         return self._get(Gauge, name, help, labels)
+
+    def histogram(self, name: str, help: str = "",
+                  reservoir_size: int | None = None,
+                  **labels) -> Histogram:
+        return self._get(Histogram, name, help, labels,
+                         reservoir_size=reservoir_size)
+
+    def record_span(self, span) -> None:
+        """Files a finished span: kept in the bounded log and mirrored as
+        a ``span_seconds`` summary labeled by span name."""
+        self._spans.append(span)
+        self.histogram("span_seconds",
+                       help="wall-clock seconds per telemetry span",
+                       span=span.name).observe(span.duration_s)
+
+    def spans(self, name: str | None = None) -> list:
+        out = list(self._spans)
+        if name is not None:
+            out = [s for s in out if s.name == name]
+        return out
 
     def metrics(self) -> list[_Metric]:
         with self._lock:

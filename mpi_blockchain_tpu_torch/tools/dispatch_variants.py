@@ -13,7 +13,15 @@ The forms (``FORMS``, built by ``make_backend``):
 * ``worker``: the reference's form, the whole search (launch included)
   submitted to one dispatch worker thread;
 * ``finish_on_worker``: the launch on the issuing thread, the read-back,
-  re-validation and retries on one worker thread.
+  re-validation and retries on one worker thread;
+* ``poll_20us`` and ``poll_yield``: ``shipped`` with the wait for the
+  sweep on the card polled in sleeps of 20 us, or in ``time.sleep(0)``,
+  between two queries (``resilience.dispatch.POLL_S``), where the shipped
+  poll queries again at once;
+* ``unbounded``: ``shipped`` with no ``MPIBT_DISPATCH_TIMEOUT``: the
+  consume blocks in the read-back, unpolled (the form before the bound).
+
+``--forms`` picks a subset.
 
 Each round runs every form once, in reverse order every other round. For
 each run it prints the wall, the sweeps' CUDA-event time, the kernel share
@@ -36,10 +44,16 @@ import torch
 
 from ..backend import MinerBackend, backend_from_config
 from ..config import MinerConfig
+from ..models import miner as miner_mod
 from ..models.miner import Miner
 from ..ops import sha256_cuda
+from ..resilience import dispatch
 
-FORMS = ("shipped", "raw", "worker", "finish_on_worker")
+FORMS = ("shipped", "raw", "worker", "finish_on_worker", "poll_20us",
+         "poll_yield", "unbounded")
+#: The module settings each form runs under (``shipped``'s otherwise).
+SETTINGS = {"poll_20us": {"POLL_S": 20e-6}, "poll_yield": {"POLL_S": 0.0},
+            "unbounded": {"DISPATCH_TIMEOUT_S": None}}
 
 
 def make_backend(form: str, config: MinerConfig,
@@ -60,9 +74,27 @@ def make_backend(form: str, config: MinerConfig,
                 launched = backend._launch(args)
             return worker.submit(backend._resolve, launched, args)
         backend.search_async = search_async
-    elif form != "shipped":
+    elif form not in FORMS:
         raise ValueError(f"unknown form {form!r}; known: {FORMS}")
     return backend
+
+
+def run_form(form: str, config: MinerConfig) -> dict:
+    """One chain through ``form``, under its settings (``SETTINGS``)."""
+    settings = SETTINGS.get(form, {})
+    saved = {"POLL_S": dispatch.POLL_S,
+             "DISPATCH_TIMEOUT_S": miner_mod.DISPATCH_TIMEOUT_S}
+    dispatch.POLL_S = settings.get("POLL_S", saved["POLL_S"])
+    miner_mod.DISPATCH_TIMEOUT_S = settings.get(
+        "DISPATCH_TIMEOUT_S", saved["DISPATCH_TIMEOUT_S"])
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as worker:
+            backend = make_backend(form, config, worker)
+            return timed_chain(Miner(config, backend=backend,
+                                     pipeline=True))
+    finally:
+        dispatch.POLL_S = saved["POLL_S"]
+        miner_mod.DISPATCH_TIMEOUT_S = saved["DISPATCH_TIMEOUT_S"]
 
 
 def timed_chain(miner: Miner) -> dict:
@@ -98,7 +130,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--blocks", type=int, default=1000)
     parser.add_argument("--batch-pow2", type=int, default=24)
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--forms", nargs="+", choices=FORMS, default=FORMS)
     args = parser.parse_args(argv)
+    forms = tuple(args.forms)
     if not torch.cuda.is_available():
         print("dispatch_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -111,13 +145,10 @@ def main(argv: list[str] | None = None) -> int:
                          n_blocks=args.blocks, batch_pow2=args.batch_pow2,
                          backend="cuda", kernel="cuda", device="cuda")
     sha256_cuda.library()
-    runs: dict[str, list[dict]] = {form: [] for form in FORMS}
+    runs: dict[str, list[dict]] = {form: [] for form in forms}
     for r in range(args.rounds):
-        for form in (FORMS if r % 2 == 0 else FORMS[::-1]):
-            with concurrent.futures.ThreadPoolExecutor(1) as worker:
-                backend = make_backend(form, config, worker)
-                run = timed_chain(Miner(config, backend=backend,
-                                        pipeline=True))
+        for form in (forms if r % 2 == 0 else forms[::-1]):
+            run = run_form(form, config)
             run["kernel_share"] = run["sweeps_s"] / run["wall_s"]
             run["host_ms_per_block"] = \
                 (run["wall_s"] - run["sweeps_s"]) / args.blocks * 1e3

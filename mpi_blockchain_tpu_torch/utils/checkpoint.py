@@ -111,10 +111,13 @@ def split_trailer(blob: bytes) -> tuple[bytes, bool]:
 
 def save_chain(node: core.Node, path: str | pathlib.Path,
                config: MinerConfig | dict | None = None,
-               fsync: bool = True) -> pathlib.Path:
+               fsync: bool = True,
+               mesh: dict | None = None) -> pathlib.Path:
     """Atomically writes the chain checkpoint + sidecar; returns the path.
     ``config`` may be a MinerConfig or an already serialized config dict
-    (the recovery rewrite keeps the original sidecar's)."""
+    (the recovery rewrite keeps the original sidecar's). ``mesh`` is the
+    elastic world's membership, which the sidecar carries as the
+    reference's does, so that a resumed world can come back as it was."""
     from ..resilience import FaultInjected
     from ..telemetry import counter
     from ..telemetry.events import emit_event
@@ -141,6 +144,8 @@ def save_chain(node: core.Node, path: str | pathlib.Path,
     if config is not None:
         meta["config"] = (config if isinstance(config, dict)
                           else dataclasses.asdict(config))
+    if mesh is not None:
+        meta["mesh"] = dict(mesh)
     _atomic_write(path, blob, fsync=fsync)
     _atomic_write(_sidecar_path(path),
                   json.dumps(meta, sort_keys=True).encode(), fsync=fsync)
@@ -256,9 +261,10 @@ def recover_chain(path: str | pathlib.Path, difficulty_bits: int,
     Only integrity damage (CheckpointError) triggers recovery; a
     difficulty mismatch or an unreadable file still refuses, since
     recovering from a wrong checkpoint would be silent corruption. On
-    recovery the repaired checkpoint is rewritten atomically, and the
-    report says what was dropped: ``{"recovered", "height",
-    "dropped_bytes"}``.
+    recovery the repaired checkpoint is rewritten atomically, keeping the
+    sidecar's run config and ``mesh``, and the report says what was
+    dropped: ``{"recovered", "height", "dropped_bytes", "mesh"}``, where
+    ``mesh`` is the sidecar's membership (None when it has none).
     """
     from ..telemetry import counter
     from ..telemetry.events import emit_event
@@ -266,8 +272,11 @@ def recover_chain(path: str | pathlib.Path, difficulty_bits: int,
     path = pathlib.Path(path)
     try:
         node = load_chain(path, difficulty_bits, node_id)
+        # load_chain has checked the sidecar, so this re-read cannot
+        # raise.
+        meta = _read_sidecar(path) or {}
         return node, {"recovered": False, "height": node.height,
-                      "dropped_bytes": 0}
+                      "dropped_bytes": 0, "mesh": meta.get("mesh")}
     except CheckpointError as damage:
         blob = path.read_bytes()
         try:
@@ -285,6 +294,7 @@ def recover_chain(path: str | pathlib.Path, difficulty_bits: int,
         except CheckpointError:
             meta = {}        # the sidecar itself is corrupt: nothing to keep
         config = meta.get("config")
+        mesh_meta = meta.get("mesh")
         usable = payload[:len(payload) - len(payload) % core.HEADER_SIZE]
         for k in range(len(usable) // core.HEADER_SIZE, 0, -1):
             node = core.Node(difficulty_bits, node_id)
@@ -300,8 +310,8 @@ def recover_chain(path: str | pathlib.Path, difficulty_bits: int,
                             "dropped_bytes": dropped,
                             "damage": str(damage)})
                 # Rewrite the repaired file, keeping the original
-                # sidecar's run config when it survived.
-                save_chain(node, path, config)
+                # sidecar's run config and mesh when they survived.
+                save_chain(node, path, config, mesh=mesh_meta)
                 return node, {"recovered": True, "height": node.height,
-                              "dropped_bytes": dropped}
+                              "dropped_bytes": dropped, "mesh": mesh_meta}
         raise

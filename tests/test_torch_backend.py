@@ -105,8 +105,15 @@ def test_backend_from_config():
     assert isinstance(wrapped.active_backend, CpuBackend)
     assert wrapped.active_backend.n_ranks == 3 and wrapped.rung == "cpu"
     for resilient in (True, False):
+        # More than one miner splits each round (parallel/mesh.py); fewer
+        # than one is a configuration error.
+        two = backend_from_config(MinerConfig(device="cpu", n_miners=2),
+                                  resilient=resilient)
+        two = getattr(two, "active_backend", two)
+        assert isinstance(two, CudaBackend)
+        assert two.round_size == 2 * two.batch_size
         with pytest.raises(ConfigError, match="n_miners"):
-            backend_from_config(MinerConfig(device="cpu", n_miners=2),
+            backend_from_config(MinerConfig(device="cpu", n_miners=0),
                                 resilient=resilient)
     with pytest.raises(ConfigError, match="unknown miner_backend"):
         get_backend("tpu")

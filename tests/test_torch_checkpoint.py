@@ -147,7 +147,11 @@ def test_legacy_file_still_loads(tmp_path):
     assert open_checkpoint(path)[1] is False
     assert ref_ckpt.load_chain(path, 8).tip_hash == node.tip_hash
     node, report = recover_chain(path, 8)
-    assert report == {"recovered": False, "height": 3, "dropped_bytes": 0}
+    # The report carries the sidecar's mesh (none here), as the
+    # reference's does.
+    assert report == {"recovered": False, "height": 3, "dropped_bytes": 0,
+                      "mesh": None}
+    assert report == ref_ckpt.recover_chain(path, 8)[1]
 
 
 def test_torn_tail_on_a_header_boundary_is_rejected(tmp_path):
@@ -339,3 +343,44 @@ def test_cli_fused_checkpoints_at_span_boundaries(tmp_path, capsys):
              telemetry.recent_events(event="checkpoint_saved")]
     assert saved == [5, 5]
     assert load_chain(ck, 8).tip_hash.hex() == out["tip_hash"]
+
+
+@pytest.mark.parametrize("cut", [0, 120])
+def test_recover_carries_the_sidecar_mesh_as_the_reference(tmp_path, cut):
+    """A checkpoint the reference wrote with an elastic ``mesh`` in its
+    sidecar, recovered by each package (torn tail or intact): the
+    rewritten sidecars are equal byte for byte, and so are the reports,
+    ``mesh`` included."""
+    miner = _mined(n=4)
+    mesh = {"world_size": 4, "live": [0, 2, 3], "evicted": [1],
+            "epoch": 2}
+    paths = []
+    for name in ("port", "ref"):
+        path = tmp_path / name / "ck.bin"
+        path.parent.mkdir()
+        ref_ckpt.save_chain(_ref_node(miner.node), path,
+                            {"difficulty_bits": 8}, mesh=mesh)
+        if cut:
+            path.write_bytes(path.read_bytes()[:-cut])
+        paths.append(path)
+    node, report = recover_chain(paths[0], 8)
+    ref_node, ref_report = ref_ckpt.recover_chain(paths[1], 8)
+    assert report == ref_report
+    assert report["mesh"] == mesh and report["recovered"] is bool(cut)
+    assert node.tip_hash == ref_node.tip_hash
+    sidecars = [p.with_suffix(".bin.json").read_bytes() for p in paths]
+    assert sidecars[0] == sidecars[1]
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+
+
+def test_save_chain_mesh_matches_the_reference(tmp_path):
+    miner = _mined()
+    mesh = {"world_size": 2, "live": [0, 1]}
+    ours, ref = tmp_path / "a.bin", tmp_path / "b.bin"
+    save_chain(miner.node, ours, {"difficulty_bits": 8}, mesh=mesh)
+    ref_ckpt.save_chain(_ref_node(miner.node), ref, {"difficulty_bits": 8},
+                        mesh=mesh)
+    assert ours.read_bytes() == ref.read_bytes()
+    assert ours.with_suffix(".bin.json").read_bytes() == \
+        ref.with_suffix(".bin.json").read_bytes()
+    assert recover_chain(ours, 8)[1]["mesh"] == mesh

@@ -143,3 +143,48 @@ def test_run_cli_returns_the_summary(capsys):
                                   "--difficulty", "8", "--blocks", "2"])
     assert rc == 0 and out["height"] == 2 and out["rung"] == "cpu"
     assert capsys.readouterr().out == ""
+
+
+def test_chain_nonces_and_mesh_hashes_tried_follow_the_chain():
+    """Phase 8 reads each block's nonce from the chain file and sums the
+    reference's accounting over them: held against the port's own miner
+    with 8 logical miners, which counts each block as it mines."""
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+
+    miner = Miner(MinerConfig(difficulty_bits=10, n_blocks=4, device="cpu",
+                              n_miners=8, batch_pow2=6))
+    miner.mine_chain()
+    blob = miner.node.save()
+    assert chip_smoke.chain_nonces(blob) == [r.nonce for r in miner.records]
+    assert chip_smoke.mesh_hashes_tried(chip_smoke.chain_nonces(blob),
+                                        8 << 6) == miner.total_hashes()
+    assert chip_smoke.chain_nonces(blob[:80]) == []
+
+
+def test_last_block_reads_the_verbose_log():
+    err = "\n".join([
+        "fault plan armed: x",
+        '{"event": "block_mined", "height": 1, "hash": "aa"}',
+        "[W1017 socket.cpp:207] a warning",
+        '{"event": "block_mined", "height": 2, "hash": "bb"}',
+        '{"event": "retry", "site": "dispatch"}'])
+    assert chip_smoke.last_block(err) == {"event": "block_mined",
+                                          "height": 2, "hash": "bb"}
+    assert chip_smoke.last_block("") == {}
+
+
+def test_span_ms_per_block_reads_span_seconds():
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.telemetry.spans import Span
+
+    telemetry.reset()
+    reg = telemetry.default_registry()
+    for name, seconds in (("miner.sweep", 0.002), ("miner.sweep", 0.004),
+                          ("miner.append", 0.001)):
+        reg.record_span(Span(name=name, duration_s=seconds))
+    got = chip_smoke.span_ms_per_block(2)
+    assert got["miner.sweep"] == pytest.approx(3.0)
+    assert got["miner.append"] == pytest.approx(0.5)
+    assert got["backend.cuda.host_tail"] == 0.0
+    assert set(got) == set(chip_smoke.SPAN_NAMES)

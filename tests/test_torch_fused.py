@@ -381,8 +381,8 @@ def test_fused_configuration_errors():
         FusedMiner(cpu, blocks_per_call=0)
     with pytest.raises(ConfigError, match="cuda backend"):
         FusedMiner(MinerConfig(backend="cpu"))
-    with pytest.raises(ConfigError, match="cuda backend"):
-        FusedMiner(MinerConfig(device="cpu", n_miners=2))
+    with pytest.raises(ConfigError, match="n_miners"):
+        FusedMiner(MinerConfig(device="cpu", n_miners=0))
     with pytest.raises(ConfigError, match="needs a CUDA device"):
         make_fused_miner(2, 12, DIFF, kernel="cuda", device="cpu")
     with pytest.raises(ConfigError, match="max_rounds"):

@@ -719,7 +719,8 @@ def test_async_dispatch_steps_down_single_flight():
 
 
 @pytest.mark.parametrize("form", ["shipped", "raw", "worker",
-                                  "finish_on_worker"])
+                                  "finish_on_worker", "poll_20us",
+                                  "poll_yield", "unbounded"])
 def test_dispatch_variants_forms_mine_the_oracles_chain(form):
     """Every form of search_async that ``tools/dispatch_variants`` times
     mines the sequential oracle's chain; the worker forms search on the
@@ -909,3 +910,147 @@ def test_smoke_kill_resume_and_degradation_on_the_cpu(tmp_path):
     assert got["torn_truncated_to"] == got["checkpoint_height"] - 1
     got = smoke_degradation(tmp_path, device="cpu")
     assert got["degraded"]["tip_hash"] == got["oracle"]["tip_hash"]
+
+
+# ---- the bound on a wedged dispatch -----------------------------------------
+
+
+class _WedgedSweep(CpuBackend):
+    """A rung whose sweeps never complete on the "device": its finish
+    carries a ``ready`` probe that never turns true (and reading it back
+    would be a bug)."""
+
+    def launch(self, *args, **kwargs):
+        def finish():
+            raise AssertionError("read back a sweep that is not done")
+        finish.ready = lambda: False
+        return finish
+
+
+def _wedged_errors(monkeypatch):
+    """The port's and the reference's "dispatch wedged" errors for the
+    same one-block run with a 0.05 s budget, and the port's time to
+    raise."""
+    import concurrent.futures
+    import time
+
+    from mpi_blockchain_tpu.backend.cpu import CpuBackend as RefCpuBackend
+    from mpi_blockchain_tpu.models import miner as ref_miner_mod
+    from mpi_blockchain_tpu_torch.models import miner as miner_mod
+
+    class RefWedged(RefCpuBackend):
+        def search_async(self, *a, **kw):
+            return concurrent.futures.Future()   # never completes
+
+    monkeypatch.setattr(miner_mod, "DISPATCH_TIMEOUT_S", 0.05)
+    monkeypatch.setattr(ref_miner_mod, "DISPATCH_TIMEOUT_S", 0.05)
+    port = Miner(MinerConfig(difficulty_bits=8, n_blocks=1, backend="cpu"),
+                 backend=ResilientBackend([("stub", _WedgedSweep)]),
+                 pipeline=True)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="dispatch wedged") as got:
+        port.mine_chain()
+    took = time.perf_counter() - t0
+    ref = RefMiner(RefConfig(difficulty_bits=8, n_blocks=1, backend="cpu"),
+                   backend=RefWedged(), pipeline=True,
+                   log_fn=lambda d: None)
+    with pytest.raises(RuntimeError, match="dispatch wedged") as want:
+        ref.mine_chain()
+    return got.value, want.value, took
+
+
+def test_wedged_dispatch_raises_the_references_error(monkeypatch):
+    """A sweep that never completes fails the pipelined Miner with the
+    reference's "dispatch wedged" RuntimeError, word for word, within its
+    MPIBT_DISPATCH_TIMEOUT budget; it does not return, and it never reads
+    back the wedged sweep."""
+    got, want, took = _wedged_errors(monkeypatch)
+    assert str(got) == str(want)
+    assert "MPIBT_DISPATCH_TIMEOUT" in str(got)
+    assert 0.05 <= took < 5.0
+    assert got.__cause__ is None and got.__suppress_context__
+
+
+def test_dispatch_timeout_knob_reads_as_the_reference():
+    """MPIBT_DISPATCH_TIMEOUT's default and parse are the reference's."""
+    import subprocess
+    import sys
+
+    code = ("import os, sys\n"
+            "os.environ['MPIBT_DISPATCH_TIMEOUT'] = sys.argv[1]\n"
+            "from mpi_blockchain_tpu_torch.models import miner\n"
+            "print(miner.DISPATCH_TIMEOUT_S)\n")
+    for raw, want in (("0.25", "0.25"), ("nope", "900.0"),
+                      ("0.0001", "900.0")):
+        out = subprocess.run([sys.executable, "-W", "ignore", "-c", code,
+                              raw], capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0 and out.stdout.strip() == want, out
+
+
+def test_slow_but_healthy_dispatch_is_polled_to_its_result(monkeypatch):
+    """A sweep that completes after a few polls inside the budget gives
+    its result: the bound does not cut healthy work, and the read-back
+    comes only once the probe says the sweep is done."""
+    from mpi_blockchain_tpu_torch.models import miner as miner_mod
+
+    polls = []
+
+    class Slow(CpuBackend):
+        def launch(self, *args, **kwargs):
+            finish = super().launch(*args, **kwargs)
+
+            def read():
+                assert len(polls) >= 3
+                return finish()
+            read.ready = lambda: polls.append(1) or len(polls) >= 3
+            return read
+
+    monkeypatch.setattr(miner_mod, "DISPATCH_TIMEOUT_S", 30.0)
+    cfg = MinerConfig(difficulty_bits=8, n_blocks=2, backend="cpu")
+    miner = Miner(cfg, backend=ResilientBackend([("slow", Slow)]),
+                  pipeline=True)
+    miner.mine_chain()
+    ref = RefMiner(RefConfig(difficulty_bits=8, n_blocks=2, backend="cpu"),
+                   log_fn=lambda d: None)
+    ref.mine_chain()
+    assert miner.node.tip_hash == ref.node.tip_hash
+
+
+def test_a_sweep_that_raises_timeout_keeps_its_own_error(monkeypatch):
+    """A backend whose search itself raises TimeoutError surfaces that
+    error, not "dispatch wedged" (the classes alias), as in the
+    reference."""
+    from mpi_blockchain_tpu_torch.models import miner as miner_mod
+
+    class Raises(CpuBackend):
+        def search(self, *a, **kw):
+            raise TimeoutError("the sweep's own timeout")
+
+    monkeypatch.setattr(miner_mod, "DISPATCH_TIMEOUT_S", 0.05)
+    miner = Miner(MinerConfig(difficulty_bits=8, n_blocks=1, backend="cpu"),
+                  backend=Raises(), pipeline=True)
+    with pytest.raises(TimeoutError, match="the sweep's own timeout"):
+        miner.mine_chain()
+
+
+def test_dispatch_variants_poll_forms_run_under_their_settings(monkeypatch):
+    """``poll_20us``, ``poll_yield`` and ``unbounded`` run the shipped
+    backend with the poll's sleep and the consume budget changed, and
+    leave both as they were."""
+    from mpi_blockchain_tpu_torch.models import miner as miner_mod
+    from mpi_blockchain_tpu_torch.resilience import dispatch
+    from mpi_blockchain_tpu_torch.tools import dispatch_variants
+
+    seen = []
+    monkeypatch.setattr(dispatch_variants, "timed_chain", lambda miner: (
+        seen.append((dispatch.POLL_S, miner_mod.DISPATCH_TIMEOUT_S))
+        or {}))
+    before = (dispatch.POLL_S, miner_mod.DISPATCH_TIMEOUT_S)
+    cfg = MinerConfig(difficulty_bits=9, n_blocks=1, backend="cpu")
+    for form in ("shipped", "poll_20us", "poll_yield", "unbounded"):
+        dispatch_variants.run_form(form, cfg)
+    assert seen == [before, (20e-6, before[1]), (0.0, before[1]),
+                    (before[0], None)]
+    assert (dispatch.POLL_S, miner_mod.DISPATCH_TIMEOUT_S) == before
+    assert before[0] is None

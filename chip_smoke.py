@@ -84,14 +84,34 @@ then:
    the card over gloo (``mine --coordinator``, d20/n10/b20): both ranks
    reach the pinned tip, rank 0 alone writes the chain, the wall beside
    the single process's of phase 3.
+9. the adversarial simulation, BASELINE config 5, through ``sim``: (a)
+   ``sim --preset adversarial`` (d16, 20 blocks, 2 groups, 2^8 nonces a
+   search) against the reference's pinned tips, steps, heights, stats and
+   causal dump, not degraded, one sweep launch per search (so every group
+   searched on ``cuda:cuda``), with its wall, host ms a search, the
+   dispatch and host-tail spans, the same run on ``--backend cpu``, and
+   the search shape's time a launch on the card (``sim_search_shape``;
+   null where the host could not keep the card's queue ahead); (b) the full-width
+   run ``SIM_D24_ARGS`` (every search a 2^24 sweep; the groups fork and
+   reorg) against its pin, with the sweeps' share of the wall; (c) the
+   vectorized engine (``--preset adversarial-bench`` and
+   ``bench_sim_adversarial``, best of 2) against the reference's pin, its
+   steps per second host time; (d) the resilience smoke's
+   ``smoke_determinism`` on the card and on the C++ sweep, both dumps
+   byte-identical to the reference's; (e) a run that cannot converge
+   (every delivery dropped): rc 1, the pinned ``sim_done`` line and dump,
+   a flight-recorder dump with the causal logs; (f) the kernel at the
+   budgets a group's search takes (``bounded_search_cases``) against the
+   plain version and ``cpu_search``.
 
-Every ``mine`` of phases 3, 6 and 8 goes through the wrapper; the smoke
-fails on any retry or step-down that its plan did not cause.
+Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
+through the wrapper; the smoke fails on any retry or step-down that its
+plan did not cause.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line; with no CUDA device it fails at once. It takes about
-five minutes on one NVIDIA H100, the builds included.
+six minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
@@ -160,6 +180,72 @@ BENCH_MINERS = (1, 8)
 MESH8_ROUND = 8 << 20
 WORLD_ARGS = ("--difficulty", "20", "--blocks", "10", "--batch-pow2", "20")
 REPO_ROOT = str(pathlib.Path(__file__).resolve().parent)
+# Phase 9: the adversarial simulation (BASELINE config 5) through ``sim``.
+# The pins come from one run each of the reference package with its C++ CPU
+# backend; ``dump_sha256`` is the sha256 of the file ``--events-dump`` wrote:
+#   (a) python -m mpi_blockchain_tpu sim --preset adversarial --events-dump
+#       PATH, with PRESETS["adversarial"] set to backend="cpu" (the preset
+#       names the TPU backend; 1.3 s on one CPU rank);
+#   (b) python -m mpi_blockchain_tpu sim --backend cpu --events-dump PATH
+#       followed by SIM_D24_ARGS (292 s on one CPU rank);
+#   (e) python -m mpi_blockchain_tpu sim --events-dump PATH followed by
+#       SIM_NEVER_ARGS (every delivery dropped: rc 1 at the 10000-step cap);
+#   (d) the reference's ``resilience smoke_determinism`` dump.
+SIM_PRESET_PIN = {
+    "converged": True, "degraded": False, "steps": 2173,
+    "heights": [20, 20],
+    "tips": [
+        "00001a052a7eab54b5dfb7055e5d219a090c3bc7cf87913da36c1d5282a548df"],
+    "stats": [{"blocks_accepted_from_peers": 9, "blocks_adopted": 0,
+               "blocks_mined": 11, "headers_fetched": 0,
+               "reorged_away_blocks": 0, "reorgs": 0},
+              {"blocks_accepted_from_peers": 11, "blocks_adopted": 0,
+               "blocks_mined": 9, "headers_fetched": 0,
+               "reorged_away_blocks": 0, "reorgs": 0}],
+    "stats_conserved": True,
+    "dump_sha256":
+        "331ce2e0c797fa598f7890206dd55b0b070e41b0ac60eac88117cdfb7e9fa43b"}
+SIM_D24_ARGS = ("--difficulty", "24", "--blocks", "12",
+                "--nonce-budget-pow2", "24", "--batch-pow2", "24",
+                "--partition-steps", "8", "--groups", "2",
+                "--delay-steps", "1")
+SIM_D24_PIN = {
+    "converged": True, "degraded": False, "steps": 16, "heights": [13, 13],
+    "tips": [
+        "000000e5d970d7c842b06b4946414ee8832839462d2b8123ae09d64eefb7769a"],
+    "stats": [{"blocks_accepted_from_peers": 1, "blocks_adopted": 0,
+               "blocks_mined": 12, "headers_fetched": 0,
+               "reorged_away_blocks": 0, "reorgs": 0},
+              {"blocks_accepted_from_peers": 0, "blocks_adopted": 12,
+               "blocks_mined": 9, "headers_fetched": 12,
+               "reorged_away_blocks": 8, "reorgs": 3}],
+    "stats_conserved": True,
+    "dump_sha256":
+        "16ab7ba00d067fa31d53aee43b7531be440407fbc3359a530455c2b45b41968f"}
+SIM_NEVER_ARGS = ("--blocks", "2", "--drop-rate", "100",
+                  "--nonce-budget-pow2", "0")
+SIM_NEVER_PIN = {
+    "summary": {"converged": False, "event": "sim_done",
+                "error": "no convergence in 10000 steps"},
+    "dump_sha256":
+        "66c5ffe6420701f132fc9e35ba08c225f42330d9587ffa3e5b0a1631703749e2"}
+SIM_DETERMINISM_SHA256 = \
+    "0ae09b39dd33c5645e7fe477206140f000e7d4bc400a6dc3b0afbf6280f29384"
+# (c): the reference's adversarial-bench record in PERF_HISTORY.jsonl.
+SIM_BENCH_PIN = {"converged": True, "blocks_total": 419, "reorgs": 5506,
+                 "sync_rejections": 37, "final_bits": 16}
+# (a): the preset's search shape, timed apart from the bus: launches of
+# 2^8 nonces at dbits 16 enqueued back to back, each into its own buffer,
+# behind a sweep of 2^30 nonces at dbits 64 that keeps the card busy while
+# the host enqueues them.
+SIM_SHAPE_LAUNCHES = 1000
+SIM_SHAPE_BLOCKER = 1 << 30
+SIM_SHAPE_BLOCKER_DBITS = 64        # no hash has 64 leading zero bits
+SIM_SHAPE_NONCES = 1 << 8
+SIM_SHAPE_DBITS = 16
+# (f): the budgets a group's bounded search takes, and where it starts.
+SIM_BOUNDED_COUNTS = (1, 8, 31, 32, 33, 256)
+SIM_BOUNDED_DBITS = (8, 16)
 
 
 class SmokeFailure(Exception):
@@ -1515,6 +1601,344 @@ def two_process_world(td: str, d20_wall: float) -> dict:
             "hashes_tried": summary["hashes_tried"], "rung": summary["rung"]}
 
 
+def bounded_search_cases(rng) -> list[tuple[bytes, int, int, int]]:
+    """(header, dbits, start, count) of the bounded early-exit searches a
+    simulation group makes (``SimNode.mine_step``): every budget of
+    ``SIM_BOUNDED_COUNTS`` at every dbits of ``SIM_BOUNDED_DBITS``,
+    starting at 0, at an odd multiple of the budget, right below 2^32 (the
+    range ends at 2^32), and past it (``CudaBackend.launch`` clamps the
+    range to 2^32, so the launch's count is a ragged part of the budget),
+    each with a seeded random header and, where one is found in the
+    tries, a header with a winner in the range."""
+    from mpi_blockchain_tpu_torch import core
+
+    cases = []
+    for d in SIM_BOUNDED_DBITS:
+        for count in SIM_BOUNDED_COUNTS:
+            starts = (0, count * (2 * int(rng.integers(1, 1 << 16)) + 1),
+                      NONCE_SPACE - count,
+                      NONCE_SPACE - max(1, count // 2 - 1))
+            for start in starts:
+                n = min(start + count, NONCE_SPACE) - start
+                cases.append((random_header(rng), d, start, n))
+                with contextlib.suppress(SmokeFailure):
+                    cases.append((find_header(
+                        rng, lambda h: core.cpu_search(h, start, n, d)[0]
+                        is not None, tries=4000), d, start, n))
+    return cases
+
+
+def bounded_vs_plain(cases, device) -> tuple[int, int, int]:
+    """The kernel against the plain version on the card, and both against
+    the C++ ``cpu_search``, over ``cases`` with and without the early exit.
+    Returns (comparisons, mismatches, cases with a winner)."""
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda, sha256_torch
+    from mpi_blockchain_tpu_torch.ops.sha256_sched import extend_midstate
+
+    compared = mismatches = winners = 0
+    for hdr, d, start, n in cases:
+        ext = extend_midstate(*core.header_midstate(hdr))
+        ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
+        oracle, _ = core.cpu_search(hdr, start, n, d)
+        winners += oracle is not None
+        for early_exit in (False, True):
+            k = sha256_cuda.sweep(ext, start, n, d, device=device,
+                                  early_exit=early_exit)
+            p = sha256_torch.sweep_core_ext(ext_t, start, n, d,
+                                            early_exit=early_exit)
+            found = k[1] if k[0] > 0 else None
+            same = found == oracle and (k == p if not early_exit else
+                                        (k[0] > 0) == (p[0] > 0)
+                                        and k[1] == p[1])
+            compared += 1
+            if not same:
+                mismatches += 1
+                log(f"MISMATCH bounded dbits={d} start={start:#x} count={n} "
+                    f"early_exit={early_exit}: kernel {k} plain {p} "
+                    f"cpu_search {oracle}")
+    return compared, mismatches, winners
+
+
+def sim_search_shape(rng, device) -> dict:
+    """Phase 9 (a)'s search shape on its own: ``SIM_SHAPE_LAUNCHES``
+    early-exit launches of ``SIM_SHAPE_NONCES`` nonces at
+    ``SIM_SHAPE_DBITS``, each over its own range into its own result
+    buffer, between one pair of CUDA events. They are enqueued behind a
+    sweep of ``SIM_SHAPE_BLOCKER`` nonces that nothing qualifies in, so
+    the card does not wait on the host between them as long as the host
+    enqueues them all before that sweep ends (``card_bound``); then the
+    events time the launches alone, one after another on the card. Where
+    the host fell behind, the events hold its enqueue time, and
+    ``launch_ms`` is None. Beside it the host's time to enqueue one, the
+    bound from the function's work, and the plain version's time for one
+    such search on the card (median of 20)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch import bench_lib, core
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda, sha256_torch
+    from mpi_blockchain_tpu_torch.ops.sha256_sched import extend_midstate
+
+    n, d = SIM_SHAPE_NONCES, SIM_SHAPE_DBITS
+    ext = extend_midstate(*core.header_midstate(random_header(rng)))
+    outs = sha256_cuda.new_result(device).repeat(SIM_SHAPE_LAUNCHES, 1)
+    sha256_cuda.launch(ext, 0, n, d, outs[0].clone(), early_exit=True)
+    blocked, start, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+    torch.cuda.synchronize()
+    blocked.record()
+    sha256_cuda.launch(ext, 0, SIM_SHAPE_BLOCKER, SIM_SHAPE_BLOCKER_DBITS,
+                       sha256_cuda.new_result(device))
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(SIM_SHAPE_LAUNCHES):
+        sha256_cuda.launch(ext, i * n, n, d, outs[i], early_exit=True)
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
+    plain = []
+    for i in range(20):
+        t0 = time.perf_counter()
+        sha256_torch.sweep_core_ext(ext_t, i * n, n, d, early_exit=True)
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t0)
+    card_bound = 1e3 * enqueue_s < blocked.elapsed_time(start)
+    return {"launch_ms": (start.elapsed_time(end) / SIM_SHAPE_LAUNCHES
+                          if card_bound else None),
+            "enqueue_ms": 1e3 * enqueue_s / SIM_SHAPE_LAUNCHES,
+            "card_bound": card_bound,
+            "bound_ms": bench_lib.sweep_bound_ms(n, d, device),
+            "plain_ms": 1e3 * statistics.median(plain)}
+
+
+def sim_run(argv: list[str], workdir: str, name: str,
+            timed: bool = False) -> dict:
+    """Runs ``sim`` through the port's CLI with the kernels' launch counts
+    set to 0 just before and read just after, and the run's causal dump
+    written to ``workdir``. With ``timed``, CUDA events around every sweep
+    launch give the sweeps' time. Returns rc, the summary, the wall, the
+    launches, the dump's sha256 and the host spans a search goes through."""
+    import hashlib
+
+    import torch
+
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    dump = os.path.join(workdir, f"{name}.json")
+    launch, events = sha256_cuda.launch, []
+
+    def timed_launch(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        launch(*args, **kwargs)
+        ev[1].record()
+        events.append(ev)
+
+    telemetry.reset()
+    torch.cuda.synchronize()
+    if timed:
+        sha256_cuda.launch = timed_launch
+    sha256_cuda.launches = sha256_block.step_launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc, summary = run_cli(["sim", *argv, "--events-dump", dump])
+        wall = time.perf_counter() - t0
+    finally:
+        sha256_cuda.launch = launch
+    launches, steps = sha256_cuda.launches, sha256_block.step_launches
+    torch.cuda.synchronize()
+    with open(dump, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return {"rc": rc, "summary": summary, "wall_s": wall,
+            "launches": launches, "step_launches": steps,
+            "kernel_s": (sum(a.elapsed_time(b) for a, b in events) / 1e3
+                         if timed else None),
+            "dump_sha256": digest,
+            "retries": telemetry.default_registry().total("retries_total"),
+            "dispatch_s": telemetry.span_seconds("backend.cuda.dispatch"),
+            "host_tail_s": telemetry.span_seconds("backend.cuda.host_tail"),
+            "cpu_search_s": telemetry.span_seconds("backend.cpu.search")}
+
+
+def check_sim_pin(run: dict, pin: dict, what: str) -> None:
+    """Fails unless a ``sim`` run exited 0 with the pinned summary and
+    causal dump, and no search was retried."""
+    got = {k: run["summary"].get(k) for k in pin if k != "dump_sha256"}
+    want = {k: v for k, v in pin.items() if k != "dump_sha256"}
+    check(run["rc"] == 0 and got == want,
+          f"{what}: rc {run['rc']}, {run['summary']} is not the pin {want}")
+    check(run["dump_sha256"] == pin["dump_sha256"],
+          f"{what}: causal dump sha256 {run['dump_sha256']} is not the "
+          f"pin's {pin['dump_sha256']}")
+    check(run["retries"] == 0, f"{what}: {run['retries']} retries")
+
+
+def phase_sim(device) -> dict:
+    """Phase 9: the adversarial simulation on the card through ``sim``.
+    Returns its numbers."""
+    import numpy as np
+
+    from mpi_blockchain_tpu_torch import bench_lib
+    from mpi_blockchain_tpu_torch.resilience.__main__ import \
+        smoke_determinism
+    from mpi_blockchain_tpu_torch.telemetry import flight_recorder
+
+    card = nvidia_smi("name,power.limit")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) config 5 as users run it: every group's search is one launch.
+        preset = sim_run(["--preset", "adversarial"], tmp, "preset")
+        check_sim_pin(preset, SIM_PRESET_PIN, "9a sim --preset adversarial")
+        searches = 2 * preset["summary"]["steps"]
+        check(preset["launches"] == searches
+              and preset["step_launches"] == 0,
+              f"9a: {preset['launches']} sweep launches and "
+              f"{preset['step_launches']} step launches for {searches} "
+              f"searches: not every search ran the kernel on cuda:cuda")
+        cpp = sim_run(["--difficulty", "16", "--blocks", "20",
+                       "--backend", "cpu"], tmp, "preset_cpu")
+        check_sim_pin(cpp, SIM_PRESET_PIN, "9a on --backend cpu")
+        shape = sim_search_shape(np.random.default_rng(20261019), device)
+        out["preset"] = {
+            **{f"shape_{k}": v for k, v in shape.items()},
+            "wall_s": preset["wall_s"], "launches": preset["launches"],
+            "step_launches": preset["step_launches"],
+            "host_ms_per_search": 1e3 * preset["wall_s"] / searches,
+            "dispatch_ms_per_search": 1e3 * preset["dispatch_s"] / searches,
+            "host_tail_ms_per_search":
+                1e3 * preset["host_tail_s"] / searches,
+            "cpp_wall_s": cpp["wall_s"],
+            "cpp_ms_per_search": 1e3 * cpp["cpu_search_s"] / searches}
+        a = out["preset"]
+        shape_on_card = ("not measured (the host fell behind the card)"
+                         if a["shape_launch_ms"] is None
+                         else f"{a['shape_launch_ms']:.6f} ms")
+        log(f"phase 9a sim --preset adversarial (d16, 20 blocks, 2 groups, "
+            f"budget 2^8): pinned tips, steps {preset['summary']['steps']}, "
+            f"heights, stats and dump sha256; not degraded; "
+            f"{a['launches']} sweep launches for {searches} searches "
+            f"(cuda:cuda on every group); wall {a['wall_s']:.6f} s, host "
+            f"{a['host_ms_per_search']:.6f} ms a search (of it "
+            f"backend.cuda.dispatch {a['dispatch_ms_per_search']:.6f} ms, "
+            f"host_tail {a['host_tail_ms_per_search']:.6f} ms); "
+            f"--backend cpu (the C++ sweep on this machine's CPU): "
+            f"wall {a['cpp_wall_s']:.6f} s, cpu search "
+            f"{a['cpp_ms_per_search']:.6f} ms a search; the search shape "
+            f"(2^8 nonces, dbits 16) back to back behind a 2^30 sweep "
+            f"(queue ahead of the card: {a['shape_card_bound']}): "
+            f"{shape_on_card} a launch on the card, "
+            f"{a['shape_enqueue_ms']:.6f} ms a launch to enqueue, bound "
+            f"{a['shape_bound_ms']:.9f} ms, plain version "
+            f"{a['shape_plain_ms']:.6f} ms; {card}")
+
+        # (b) full width: every search a 2^24 sweep; forks and reorgs.
+        d24 = sim_run(list(SIM_D24_ARGS), tmp, "d24", timed=True)
+        check_sim_pin(d24, SIM_D24_PIN, "9b sim d24/2^24")
+        searches = 2 * d24["summary"]["steps"]
+        check(d24["launches"] == searches and d24["step_launches"] == 0,
+              f"9b: {d24['launches']} launches for {searches} searches")
+        out["d24"] = {"wall_s": d24["wall_s"], "launches": d24["launches"],
+                      "step_launches": d24["step_launches"],
+                      "kernel_s": d24["kernel_s"],
+                      "kernel_share": d24["kernel_s"] / d24["wall_s"],
+                      "host_ms_per_search": 1e3 * d24["wall_s"] / searches,
+                      "reorgs": sum(st["reorgs"]
+                                    for st in d24["summary"]["stats"])}
+        b = out["d24"]
+        log(f"phase 9b sim {' '.join(SIM_D24_ARGS)}: pinned tips, steps "
+            f"{d24['summary']['steps']}, heights, stats ({b['reorgs']} "
+            f"reorgs) and dump sha256; {b['launches']} sweep launches; wall "
+            f"{b['wall_s']:.6f} s, sweeps {b['kernel_s']:.6f} s "
+            f"({b['kernel_share']:.6f} of the wall); {card}")
+
+        # (c) the vectorized engine: host numpy in both packages.
+        rc, vec = run_cli(["sim", "--preset", "adversarial-bench"])
+        check(rc == 0 and {k: vec[k] for k in SIM_BENCH_PIN}
+              == SIM_BENCH_PIN, f"9c sim --preset adversarial-bench: {vec}")
+        best = bench_lib.repeat_best(bench_lib.bench_sim_adversarial,
+                                     reps=2, key="steps_per_sec")
+        check({k: best[k] for k in SIM_BENCH_PIN} == SIM_BENCH_PIN,
+              f"9c bench_sim_adversarial: {best}")
+        out["vec"] = {"cli_steps_per_sec": vec["steps_per_sec"],
+                      "steps_per_sec": best["steps_per_sec"],
+                      "all_steps_per_sec": best["all_steps_per_sec"],
+                      "wall_s": best["wall_s"]}
+        log(f"phase 9c sim --preset adversarial-bench: summary matches the "
+            f"reference's pin {SIM_BENCH_PIN}; steps_per_sec (host time on "
+            f"this GPU machine's CPU; the engine has no device path) "
+            f"{vec['steps_per_sec']!r} through the CLI, bench_sim_adversarial "
+            f"best of 2 {best['steps_per_sec']!r} (all "
+            f"{best['all_steps_per_sec']})")
+
+        # (d) one fixed-seed fault plan: byte-identical dumps on the card,
+        # equal to the C++ sweep's and to the reference's.
+        tmp_d = pathlib.Path(tmp)
+        on_card = smoke_determinism(tmp_d, device="cuda")
+        on_cpu = smoke_determinism(tmp_d, device="cpu")
+        check(on_card["sha256"] == on_cpu["sha256"]
+              == SIM_DETERMINISM_SHA256,
+              f"9d determinism: card {on_card['sha256']}, cpu "
+              f"{on_cpu['sha256']}, reference {SIM_DETERMINISM_SHA256}")
+        out["determinism_sha256"] = on_card["sha256"]
+        log(f"phase 9d smoke_determinism: the faulted sim's causal dump "
+            f"({on_card['dump_bytes']} bytes) is byte-identical across 2 "
+            f"runs on the card and equal to the --backend cpu runs' and the "
+            f"reference's (sha256 {on_card['sha256']})")
+
+        # (e) a run that cannot converge: rc 1, the recorder dumps.
+        fr = os.path.join(tmp, "flight.json")
+        try:
+            never = sim_run([*SIM_NEVER_ARGS, "--flight-recorder", fr], tmp,
+                            "never")
+        finally:
+            flight_recorder.uninstall()
+        check(never["rc"] == 1 and never["summary"]
+              == SIM_NEVER_PIN["summary"]
+              and never["dump_sha256"] == SIM_NEVER_PIN["dump_sha256"]
+              and never["retries"] == 0,
+              f"9e: rc {never['rc']}, {never['summary']}, dump "
+              f"{never['dump_sha256']}")
+        check(never["launches"] == 2 * 10_000,
+              f"9e: {never['launches']} launches for 20000 searches")
+        with open(fr) as f:
+            recorded = json.load(f)
+        check(recorded["reason"].startswith("sim non-convergence")
+              and set(recorded["causal"]) == {"0", "1", "bus"}
+              and all(recorded["causal"].values()),
+              f"9e flight recorder: {recorded['reason']!r}, causal logs "
+              f"{sorted(recorded['causal'])}")
+        out["never"] = {"wall_s": never["wall_s"],
+                        "launches": never["launches"]}
+        log(f"phase 9e sim {' '.join(SIM_NEVER_ARGS)} on the card: rc 1, "
+            f"the pinned sim_done line and dump, a flight-recorder dump with "
+            f"the causal logs of both groups and the bus; "
+            f"{never['launches']} launches in {never['wall_s']:.6f} s")
+
+    # (f) the kernel at the budgets the simulation gives it.
+    cases = bounded_search_cases(np.random.default_rng(20261018))
+    compared, mismatches, winners = bounded_vs_plain(cases, device)
+    check(mismatches == 0, f"9f: {mismatches} bounded-search mismatches")
+    out["bounded"] = {"cases": len(cases), "compared": compared,
+                      "mismatches": mismatches, "with_winner": winners}
+    log(f"phase 9f bounded searches (counts {SIM_BOUNDED_COUNTS}, dbits "
+        f"{SIM_BOUNDED_DBITS}; starts 0, an odd multiple of the budget, "
+        f"2^32 - count and a range clamped at 2^32): {len(cases)} cases "
+        f"({winners} with a winner), {compared} comparisons of kernel, "
+        f"plain version and cpu_search, mismatches {mismatches}. Phase 1 "
+        f"holds whole and ragged slices of 32 and [2^32 - 1, 2^32) at "
+        f"dbits 0; none of these cases repeats one of its")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1557,6 +1981,7 @@ def main() -> int:
         bench = phase_bench(device, fused[(24, 1000)])
         mesh = phase_mesh(device, chain, fused[(24, 1000)],
                           chain["d20_wall_s"])
+        sim = phase_sim(device)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -1580,13 +2005,19 @@ def main() -> int:
         "launches_bench_chain_d24_n1000": bench["chain"]["sweeps"],
         "launches_mesh8_miner_d24_n1000": mesh["miner"]["sweeps"],
         "launches_mesh8_fused_d24_n1000": mesh["fused"]["sweeps"],
-        "bench": bench, "mesh8": mesh, "resilience": resilience}, {
+        "launches_sim_adversarial": sim["preset"]["launches"],
+        "launches_sim_d24": sim["d24"]["launches"],
+        "bounded_mismatches": sim["bounded"]["mismatches"],
+        "bench": bench, "mesh8": mesh, "resilience": resilience,
+        "sim": sim}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",
         "library_ms": None, **step,
         "launches_bench_chain_d24_n1000": bench["chain"]["steps"],
         "launches_mesh8_fused_d24_n1000": mesh["fused"]["steps"],
+        "launches_sim_adversarial": sim["preset"]["step_launches"],
+        "launches_sim_d24": sim["d24"]["step_launches"],
         "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
         "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
     log(json.dumps({"ok": True, "device": {

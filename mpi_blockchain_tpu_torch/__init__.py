@@ -13,11 +13,13 @@ Layout:
   models/      the Miner driver (sequential and pipelined), the fused miner
   parallel/    winner-select of more than one miner, the gloo world
   resilience/  retries, the step-down ladder, fault injection
-  telemetry/   metrics, spans, events
+  telemetry/   metrics, spans, events, causal logs, the flight recorder
   utils/       sealed checkpoints
-  bench_lib.py sweep rate and chain wall measurements
+  simulation.py  the adversarial multi-group bus (BASELINE config 5)
+  sim/         the vectorized scenario engine and its adversaries (numpy)
+  bench_lib.py sweep rate, chain wall and scenario-engine measurements
   convert.py   state carried over from the reference (ext words, chains)
-  cli.py       python -m mpi_blockchain_tpu_torch mine|bench|verify|info
+  cli.py       python -m mpi_blockchain_tpu_torch mine|bench|verify|sim|info
 """
 
 __version__ = "0.1.0"

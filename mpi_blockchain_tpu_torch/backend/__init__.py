@@ -116,10 +116,10 @@ def get_backend(name: str, **kwargs) -> MinerBackend:
     return cls(**kwargs)
 
 
-def backend_from_config(config, resilient: bool = True,
-                        group=None) -> MinerBackend:
+def backend_from_config(config, resilient: bool = True, group=None,
+                        cpu_ranks: int | None = None) -> MinerBackend:
     """The one place a MinerConfig becomes a backend instance (shared by
-    ``Miner`` and ``FusedMiner``'s rollover search).
+    ``Miner``, ``FusedMiner``'s rollover search and ``SimNode``).
 
     By default the instance is wrapped in the resilience layer's
     ``ResilientBackend``: retry with backoff around every dispatch,
@@ -131,7 +131,9 @@ def backend_from_config(config, resilient: bool = True,
     measurements of one backend). ``config.n_miners`` miners split each
     round; ``group``, a ``torch.distributed`` process group of that many
     ranks (the reference's mesh), makes this process one of them
-    (``backend/cuda.py``).
+    (``backend/cuda.py``). ``cpu_ranks`` overrides the C++ rank count of
+    the ``cpu`` backend or rung (``SimNode`` runs each group as one rank);
+    by default it is ``config.n_miners``.
     """
     if group is not None and config.backend == "cpu":
         raise ConfigError("a world of processes mines with the cuda "
@@ -140,9 +142,12 @@ def backend_from_config(config, resilient: bool = True,
     if resilient:
         from ..resilience.dispatch import ResilientBackend, \
             ladder_from_config
-        return ResilientBackend(ladder_from_config(config, group=group))
+        return ResilientBackend(ladder_from_config(config, group=group,
+                                                   cpu_ranks=cpu_ranks))
     if config.backend == "cpu":
-        return get_backend("cpu", n_ranks=config.n_miners,
+        return get_backend("cpu",
+                           n_ranks=(config.n_miners if cpu_ranks is None
+                                    else cpu_ranks),
                            batch_size=config.batch_size)
     return get_backend("cuda", batch_pow2=config.effective_batch_pow2,
                        kernel=config.kernel, device=config.device,

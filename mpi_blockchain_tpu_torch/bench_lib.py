@@ -15,14 +15,17 @@ so a later benchmark can read both packages' records:
 * ``bench_sharded`` (the reference's ``bench_sharded_pallas``) and
   ``bench_cuda_single`` (``bench_tpu_single``): the pinned d16/n30 and
   d20/n10 cells with the C++ oracle's tip beside them;
+* ``bench_sim_adversarial``: the steps per second of the vectorized
+  adversarial scenario engine, which runs on the host in both packages
+  (a seeded lottery stands in for mining), with the summary that doubles
+  as its correctness canary;
 * ``repeat_best``: best of N with the spread on the record.
 
 Everything runs on the card unless the caller asks for the CPU
 (``device="cpu"``: the plain PyTorch versions), and a number taken on the
 CPU is never given a device metric's name (``kernel_ms`` and ``bound_ms``
 are the card's only). The reference's ``alu_ops_per_nonce`` is a census
-of its TPU program and has no counterpart here; its adversarial
-simulation bench waits for the simulation.
+of its TPU program and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -57,7 +60,11 @@ DEVICE_INIT_PHASE_TIMEOUT_S = env_number(
 def _device_init_phase(name: str, timeout_s: float | None = None):
     """One attributable device-init phase: a ``bench.device_init`` span,
     a completion event carrying (phase, elapsed_s), and a hang watchdog
-    that emits a ``hang`` event when the phase outlasts its budget."""
+    that emits a ``hang`` event and dumps the flight recorder (if armed)
+    when the phase outlasts its budget. The watchdog fires while the
+    process is still alive, so the dump exists even when a parent then
+    kills the wedged process."""
+    from .telemetry import flight_recorder
     timeout_s = (DEVICE_INIT_PHASE_TIMEOUT_S if timeout_s is None
                  else timeout_s)
     # One heartbeat stamp at phase entry: a phase that wedges leaves the
@@ -66,12 +73,13 @@ def _device_init_phase(name: str, timeout_s: float | None = None):
     t0 = time.perf_counter()
 
     def _hang() -> None:
-        # The reference also dumps its flight recorder here; the port's
-        # dump waits for the flight recorder (ROADMAP §A.5).
+        elapsed = round(time.perf_counter() - t0, 1)
         emit_event({"event": "bench.device_init", "phase": name,
-                    "status": "hang",
-                    "elapsed_s": round(time.perf_counter() - t0, 1),
+                    "status": "hang", "elapsed_s": elapsed,
                     "timeout_s": timeout_s})
+        flight_recorder.dump_now(
+            f"bench.device_init hang: phase {name!r} still running "
+            f"after {elapsed}s (budget {timeout_s}s)")
 
     watchdog = threading.Timer(timeout_s, _hang)
     watchdog.daemon = True
@@ -393,6 +401,34 @@ def bench_cuda_single(device="cuda", kernel: str | None = None) -> dict:
             "mhs": round(miner.hashes_per_sec() / 1e6, 2),
             "tip_hash": miner.node.tip_hash.hex(),
             "tip_matches_cpu_oracle": miner.node.tip_hash.hex() == oracle}
+
+
+def bench_sim_adversarial(preset: str = "adversarial-bench") -> dict:
+    """One timed run of the vectorized adversarial scenario engine, the
+    ``sim_adversarial`` bench section, with the reference's keys. The
+    scenario is a fixed preset (churn, retargeting and the selfish,
+    eclipse and flood adversaries all live), so ``steps_per_sec`` prices
+    the engine, and the summary doubles as a correctness canary. The
+    engine is host numpy in both packages: the number is host time, on
+    whatever machine runs it."""
+    from .sim import SCENARIO_PRESETS, run_scenario
+
+    scenario = SCENARIO_PRESETS[preset]
+    t0 = time.perf_counter()
+    net, summary = run_scenario(scenario)
+    wall = time.perf_counter() - t0
+    return {
+        "preset": preset,
+        "n_nodes": scenario.n_nodes,
+        "steps": scenario.steps,
+        "wall_s": round(wall, 3),
+        "steps_per_sec": round(scenario.steps / wall, 1),
+        "converged": summary["converged"],
+        "blocks_total": summary["blocks_total"],
+        "final_bits": summary["final_bits"],
+        "sync_rejections": summary["sync_rejections"],
+        "reorgs": summary["reorgs"],
+    }
 
 
 def repeat_best(measure, reps: int = 2, key: str = "hashes_per_sec",

@@ -14,6 +14,10 @@
     python -m mpi_blockchain_tpu_torch bench --mode sweep --seconds 5
     python -m mpi_blockchain_tpu_torch bench --mode chain --blocks 1000
     python -m mpi_blockchain_tpu_torch verify --chain chain.bin --difficulty 20
+    python -m mpi_blockchain_tpu_torch sim --preset adversarial
+    python -m mpi_blockchain_tpu_torch sim --difficulty 24 --blocks 12 \
+        --nonce-budget-pow2 24 --batch-pow2 24 --partition-steps 8
+    python -m mpi_blockchain_tpu_torch sim --preset adversarial-bench
     python -m mpi_blockchain_tpu_torch info
 
 Flags keep the reference CLI's names. ``mine`` runs on the card unless
@@ -32,6 +36,19 @@ summary. ``bench`` measures the sweep rate (``--mode sweep``) or a whole
 chain's wall (``--mode chain``) and prints one JSON payload
 (``bench_lib.py``).
 
+``sim`` runs BASELINE config 5, competing miner groups that fork in a
+partition and reconcile by longest-chain reorg (``simulation.py``), on the
+real-chain bus: each group searches through its own ``ResilientBackend``,
+so on the card every group's bounded search is one launch of the sweep
+kernel. Like ``mine`` it runs on the card unless ``--device cpu`` or
+``--backend cpu`` asks for the CPU (the reference's ``sim`` defaults to
+its CPU backend). A scenario preset (``--preset adversarial-bench``) or
+``--nodes N`` runs the vectorized scenario engine instead (``sim/``), a
+seeded lottery in numpy on the host in both packages. ``sim`` exits 1 when
+the run does not converge (the flight recorder dumps, if armed);
+``--events-dump`` writes every node's causal log, the same bytes the
+reference writes for the same run.
+
 ``mine`` searches through the resilience layer's ``ResilientBackend``
 (retries, host re-validation of every winner, the step-down ladder
 ``cuda:<kernel>`` → ``cuda:torch`` → ``cpu``); the summary names the rung
@@ -40,13 +57,15 @@ true`` and warns on stderr. ``--fault-plan`` (or ``MPIBT_FAULT_PLAN``)
 arms the fault-injection harness; ``--checkpoint``, ``--checkpoint-every``
 and ``--resume`` save and resume sealed checkpoints
 (``utils/checkpoint.py``), which ``verify`` checks as well as raw chain
-files. Exit codes: 0 converged (possibly degraded, warned); 1 a resume or
-verify that failed; 2 a configuration error, retries exhausted on every
-rung, or a hand-written kernel that failed (``KernelError``: it did not
-build or launch, a CUDA error came back at its read-back, or its rung kept
-failing with no injected fault behind it; never stepped over), each as one
-JSON error line; 3 an invalid fault plan, or a strict one that did not
-fire in full.
+files. ``--flight-recorder PATH`` (or ``MPIBT_FLIGHT_RECORDER``) arms the
+crash flight recorder (``telemetry/flight_recorder.py``). Exit codes: 0
+converged (possibly degraded, warned); 1 a resume or verify that failed,
+or a simulation that did not converge; 2 a configuration error, retries
+exhausted on every rung, or a hand-written kernel that failed
+(``KernelError``: it did not build or launch, a CUDA error came back at
+its read-back, or its rung kept failing with no injected fault behind it;
+never stepped over), each as one JSON error line; 3 an invalid fault
+plan, or a strict one that did not fire in full.
 """
 from __future__ import annotations
 
@@ -62,6 +81,12 @@ from .config import BACKENDS, DEVICES, KERNELS, PRESETS, ConfigError, \
     KernelError, MinerConfig
 from .resilience import FaultPlanError, RetryExhausted
 
+#: The vectorized engine's preset names (``sim.SCENARIO_PRESETS``), as a
+#: literal so that building the parser imports no numpy; a test holds the
+#: two equal.
+SCENARIO_PRESET_NAMES = ("adversarial-1k", "adversarial-bench",
+                         "adversarial-smoke")
+
 
 def _batch_pow2_arg(s: str):
     if s == "auto":
@@ -71,6 +96,28 @@ def _batch_pow2_arg(s: str):
     except ValueError:
         raise argparse.ArgumentTypeError(
             f"expected an integer or 'auto', got {s!r}") from None
+
+
+def _add_metrics_dump_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--metrics-dump", metavar="PATH",
+                   help="write the run's metrics (Prometheus text) here on "
+                        "every exit path")
+    p.add_argument("--flight-recorder", metavar="PATH",
+                   help="arm the crash flight recorder: on an abnormal exit "
+                        "(uncaught exception, sim non-convergence, a device "
+                        "init that hangs) dump events, causal logs and a "
+                        "metrics snapshot to PATH (env "
+                        "MPIBT_FLIGHT_RECORDER also arms it)")
+
+
+def _add_fault_plan_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--fault-plan", metavar="PATH|seed:N",
+                   help="arm the deterministic fault-injection harness "
+                        "with a JSON fault plan (or a seed-derived one); "
+                        "env MPIBT_FAULT_PLAN also arms it. Exit codes: 0 "
+                        "converged (possibly degraded, warned), 2 retries "
+                        "exhausted or a kernel that failed, 3 plan invalid "
+                        "or unexhausted")
 
 
 def _config_from(args) -> MinerConfig:
@@ -336,6 +383,223 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _sim_scenario_from(args):
+    """Resolves the vectorized engine's scenario: a named scenario preset,
+    or an ad-hoc one from the --nodes/--steps/strategy/churn/retarget
+    flags. Returns None when the real-chain bus runs instead."""
+    from .sim import (SCENARIO_PRESETS, AdversarySpec, ChurnSchedule,
+                      LatencySpec, RetargetRule, Scenario)
+
+    if args.preset in SCENARIO_PRESETS:
+        if args.nodes is not None:
+            raise ConfigError(
+                f"--nodes cannot resize scenario preset {args.preset} "
+                f"(its partitions/churn/adversaries are sized to "
+                f"{SCENARIO_PRESETS[args.preset].n_nodes} nodes); "
+                f"build an ad-hoc scenario with --nodes alone")
+        sc = SCENARIO_PRESETS[args.preset]
+        # Every flag given overrides the preset (an explicit 0 too: the
+        # defaults are None); a silently dropped --strategy would be an
+        # attack that never ran.
+        seed = sc.seed if args.seed is None else args.seed
+        steps = sc.steps if args.steps is None else args.steps
+        over: dict = {"seed": seed, "steps": steps}
+        if args.difficulty is not None:
+            over["difficulty_bits"] = args.difficulty
+        if args.hashes_per_step is not None:
+            over["hashes_per_step"] = args.hashes_per_step
+        if args.converge_margin is not None:
+            over["converge_margin"] = args.converge_margin
+        if args.drop_rate is not None:
+            over["drop_rate_pct"] = args.drop_rate
+        if args.latency is not None:
+            over["latency"] = LatencySpec.parse(args.latency)
+        if args.retarget is not None:
+            over["retarget"] = RetargetRule.parse(args.retarget)
+        if args.strategy:
+            over["adversaries"] = tuple(AdversarySpec.parse(s)
+                                        for s in args.strategy)
+        if args.churn is not None:
+            over["churn"] = ChurnSchedule.from_seed(
+                seed, sc.n_nodes, steps, args.churn)
+        return dataclasses.replace(sc, **over)
+    if args.nodes is None:
+        # The real-chain bus, but flags of the vectorized engine alone
+        # must not be ignored in silence (a "flood attack" that never ran).
+        vec_only = [flag for flag, value in (
+            ("--strategy", args.strategy), ("--churn", args.churn),
+            ("--steps", args.steps),
+            ("--latency", args.latency),
+            ("--hashes-per-step", args.hashes_per_step),
+            ("--converge-margin", args.converge_margin))
+            if value is not None and value != []]
+        if vec_only:
+            raise ConfigError(
+                f"{'/'.join(vec_only)} need the vectorized engine: "
+                f"pass --nodes N or a scenario preset "
+                f"({', '.join(sorted(SCENARIO_PRESETS))})")
+        return None
+    if args.preset:
+        # A mining preset composed with --nodes would be discarded by the
+        # vectorized engine in silence: refuse instead.
+        raise ConfigError(
+            f"--preset {args.preset} is a legacy mining preset; with "
+            f"--nodes use a scenario preset "
+            f"({', '.join(sorted(SCENARIO_PRESETS))}) or drop --nodes")
+    seed = 0 if args.seed is None else args.seed
+    steps = 1000 if args.steps is None else args.steps
+    return Scenario(
+        n_nodes=args.nodes,
+        steps=steps,
+        seed=seed,
+        difficulty_bits=(16 if args.difficulty is None
+                         else args.difficulty),
+        hashes_per_step=(32 if args.hashes_per_step is None
+                         else args.hashes_per_step),
+        retarget=(RetargetRule.parse(args.retarget)
+                  if args.retarget else None),
+        latency=LatencySpec.parse(args.latency or "1"),
+        drop_rate_pct=args.drop_rate or 0,
+        churn=ChurnSchedule.from_seed(seed, args.nodes, steps,
+                                      args.churn or 0),
+        adversaries=tuple(AdversarySpec.parse(s)
+                          for s in (args.strategy or [])),
+        converge_margin=(1000 if args.converge_margin is None
+                         else args.converge_margin),
+    )
+
+
+def _register_network(net) -> None:
+    """Hands a simulation network to the flight recorder, if armed, before
+    the run starts: a run that does not converge raises out of the run,
+    and its causal logs are what the dump must hold."""
+    from .telemetry import flight_recorder
+
+    if flight_recorder.installed():
+        flight_recorder.register_network(net)
+
+
+def _cmd_sim_vec(args, scenario) -> int:
+    """The vectorized scenario engine behind ``sim`` (host numpy)."""
+    from .sim import run_scenario
+    from .telemetry import flight_recorder
+
+    t0 = time.perf_counter()
+    net, summary = run_scenario(scenario, on_network=_register_network)
+    wall = time.perf_counter() - t0
+    if args.events_dump:
+        try:
+            net.dump_causal(args.events_dump,
+                            meta={"preset": args.preset})
+        except OSError as e:
+            print(f"events-dump failed: {e}", file=sys.stderr)
+    summary["wall_s"] = round(wall, 3)
+    summary["steps_per_sec"] = round(scenario.steps / wall, 1) if wall \
+        else None
+    print(json.dumps(summary, sort_keys=True))
+    if not summary["converged"]:
+        flight_recorder.dump_now("vec sim non-convergence at cutoff")
+        return 1
+    return 0
+
+
+def cmd_sim(args) -> int:
+    """BASELINE config 5 from the command line: partition, then reorg.
+    Scenario presets and --nodes run the vectorized engine instead of the
+    real-chain bus."""
+    from .simulation import run_adversarial
+    from .telemetry import flight_recorder
+
+    scenario = _sim_scenario_from(args)
+    if scenario is not None:
+        return _cmd_sim_vec(args, scenario)
+    if args.seed is None:     # the real-chain bus: plain defaults
+        args.seed = 0
+    if args.drop_rate is None:
+        args.drop_rate = 0
+
+    retarget = None
+    if args.retarget:
+        from .sim import RetargetRule
+        retarget = RetargetRule.parse(args.retarget)
+    if args.preset:
+        cfg = dataclasses.replace(PRESETS[args.preset], device=args.device)
+        target_height = cfg.n_blocks
+    else:  # flags always take effect (difficulty defaults to the sim's 8)
+        cfg = MinerConfig(
+            difficulty_bits=8 if args.difficulty is None else args.difficulty,
+            n_blocks=args.blocks, backend=args.backend,
+            kernel=args.kernel, batch_pow2=args.batch_pow2,
+            device=args.device)
+        target_height = args.blocks
+
+    held: dict = {}
+
+    def _on_network(net) -> None:
+        held["net"] = net
+        _register_network(net)
+
+    def _dump_events() -> None:
+        # A dump failure must not mask the run's own outcome.
+        if args.events_dump and "net" in held:
+            try:
+                held["net"].dump_causal(args.events_dump, meta={
+                    "seed": args.seed, "groups": args.groups,
+                    "partition_steps": args.partition_steps,
+                    "drop_rate_pct": args.drop_rate,
+                    "delay_steps": args.delay_steps,
+                    "target_height": target_height,
+                    "difficulty_bits": cfg.difficulty_bits})
+            except OSError as e:
+                print(f"events-dump failed: {e}", file=sys.stderr)
+
+    try:
+        net = run_adversarial(config=cfg,
+                              partition_steps=args.partition_steps,
+                              target_height=target_height,
+                              nonce_budget=1 << args.nonce_budget_pow2,
+                              delay_steps=args.delay_steps,
+                              drop_rate_pct=args.drop_rate,
+                              seed=args.seed, n_groups=args.groups,
+                              retarget=retarget,
+                              on_network=_on_network)
+    except RuntimeError as e:  # Network.run: no convergence in max_steps
+        if not hasattr(e, "network"):
+            # Only Network.run's non-convergence carries .network; any
+            # other RuntimeError (a KernelError among them) keeps its
+            # traceback and its own exit code, and is never reported as
+            # a consensus outcome.
+            raise
+        # Handled (rc 1), not a crash, so the dump is made here.
+        flight_recorder.dump_now(f"sim non-convergence: {e}")
+        _dump_events()
+        print(json.dumps({"event": "sim_done", "converged": False,
+                          "error": str(e)}, sort_keys=True))
+        return 1
+    _dump_events()
+    tips = {n.node.tip_hash.hex() for n in net.nodes}
+    degradations = [d for n in net.nodes
+                    for d in getattr(n.backend, "degradations", [])]
+    if degradations:
+        print(f"warning: {len(degradations)} backend degradation(s) "
+              f"during the sim; converged anyway", file=sys.stderr)
+    out = {
+        "event": "sim_done",
+        "converged": net.converged(),
+        "degraded": bool(degradations),
+        "steps": net.step_count,
+        "heights": [n.node.height for n in net.nodes],
+        "tips": sorted(tips),
+        "stats": [dataclasses.asdict(n.stats) for n in net.nodes],
+        # height == mined + accepted + adopted - reorged_away on every
+        # node (the suffix-sync stats contract).
+        "stats_conserved": all(n.stats.conserved_height() == n.node.height
+                               for n in net.nodes),
+    }
+    print(json.dumps(out, sort_keys=True))
+    return 0 if net.converged() else 1
+
+
 def cmd_info(args) -> int:
     """PyTorch, CUDA and card facts, whether the kernel can build, and
     this process's place in its world."""
@@ -403,17 +667,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="load this checkpoint (checking integrity; a "
                              "torn tail is truncated to the last valid "
                              "block) and mine up to --blocks")
-    p_mine.add_argument("--fault-plan", metavar="PATH|seed:N",
-                        help="arm the deterministic fault-injection "
-                             "harness with a JSON fault plan (or a "
-                             "seed-derived one); env MPIBT_FAULT_PLAN also "
-                             "arms it. Exit codes: 0 converged (possibly "
-                             "degraded, warned), 2 retries exhausted or a "
-                             "kernel that failed, 3 plan invalid or "
-                             "unexhausted")
-    p_mine.add_argument("--metrics-dump", metavar="PATH",
-                        help="write the run's metrics (Prometheus text) "
-                             "here on every exit path")
+    _add_fault_plan_arg(p_mine)
+    _add_metrics_dump_arg(p_mine)
     p_mine.add_argument("--coordinator", metavar="HOST:PORT",
                         help="multi-process launch: rank 0's address "
                              "(run the same command in every process; "
@@ -452,15 +707,97 @@ def main(argv: list[str] | None = None) -> int:
     p_bench.add_argument("--blocks-per-call", type=int, default=100)
     p_bench.add_argument("--device", choices=DEVICES, default="cuda",
                          help="torch device; the CPU only when asked for")
-    p_bench.add_argument("--metrics-dump", metavar="PATH",
-                         help="write the run's metrics (Prometheus text) "
-                              "here on every exit path")
+    _add_metrics_dump_arg(p_bench)
     p_bench.set_defaults(fn=cmd_bench)
+
+    p_sim = sub.add_parser(
+        "sim", help="adversarial simulation: the config-5 partition+reorg "
+                    "bus on the card, or the vectorized scenario engine "
+                    "on the host (--preset adversarial-1k / --nodes N)")
+    p_sim.add_argument("--preset",
+                       choices=sorted(PRESETS) + sorted(
+                           SCENARIO_PRESET_NAMES),
+                       help="a named mining config (the real-chain bus; "
+                            "overrides the other flags except --device) "
+                            "or a scenario preset (the vectorized engine)")
+    p_sim.add_argument("--difficulty", type=int, default=None,
+                       help="leading-zero bits (default: sim-internal 8)")
+    p_sim.add_argument("--blocks", type=int, default=8,
+                       help="target height every node must converge to")
+    p_sim.add_argument("--backend", choices=BACKENDS, default="cuda",
+                       help="search backend of every group: cuda (the card "
+                            "unless --device cpu) or cpu (the C++ sweep); "
+                            "default cuda, where the reference's sim "
+                            "defaults to its cpu backend: entry points of "
+                            "the port run on the card unless asked")
+    p_sim.add_argument("--kernel", choices=KERNELS, default="auto",
+                       help="sweep kernel of the cuda backend")
+    p_sim.add_argument("--device", choices=DEVICES, default="cuda",
+                       help="torch device of the cuda backend; the CPU "
+                            "only when asked for")
+    p_sim.add_argument("--batch-pow2", type=_batch_pow2_arg, default=12)
+    p_sim.add_argument("--partition-steps", type=int, default=30,
+                       help="steps the groups stay partitioned")
+    p_sim.add_argument("--nonce-budget-pow2", type=int, default=8,
+                       help="log2 nonces each group tries per sim step")
+    p_sim.add_argument("--delay-steps", type=int, default=1,
+                       help="delivery delay in sim steps")
+    p_sim.add_argument("--drop-rate", type=int, default=None,
+                       help="%% of deliveries dropped (seeded, "
+                            "deterministic; default 0)")
+    p_sim.add_argument("--seed", type=int, default=None,
+                       help="seed for the drop/scenario schedules "
+                            "(default 0; overrides a scenario preset's "
+                            "baked-in seed when given, 0 included)")
+    p_sim.add_argument("--groups", type=int, default=2,
+                       help="number of competing miner groups")
+    p_sim.add_argument("--retarget", metavar="INT[:STEP[:MAX]]",
+                       default=None,
+                       help="height-scheduled difficulty retargeting: "
+                            "+STEP bits every INT blocks, capped at MAX "
+                            "(validated on sync adoption, both engines)")
+    p_sim.add_argument("--nodes", type=int, default=None,
+                       help="vectorized engine: network size (switches "
+                            "sim to the batched scenario engine)")
+    p_sim.add_argument("--steps", type=int, default=None,
+                       help="vectorized engine: scenario horizon in "
+                            "steps (default 1000)")
+    p_sim.add_argument("--strategy", action="append", metavar="SPEC",
+                       help="vectorized engine: adversary strategy, "
+                            "repeatable — selfish:node=1,hashrate=8 | "
+                            "eclipse:node=2,victim=5,start=50,until=120 "
+                            "| flood:node=3,every=25")
+    p_sim.add_argument("--churn", type=int, default=None, metavar="N",
+                       help="vectorized engine: N seeded crash-restart "
+                            "churn events across the horizon")
+    p_sim.add_argument("--latency", default=None, metavar="N|LO-HI",
+                       help="vectorized engine: delivery delay steps, "
+                            "fixed (N, default 1) or seeded uniform "
+                            "(LO-HI)")
+    p_sim.add_argument("--hashes-per-step", type=int, default=None,
+                       help="vectorized engine: per-node hashes/step in "
+                            "the mining lottery (default 32)")
+    p_sim.add_argument("--converge-margin", type=int, default=None,
+                       help="vectorized engine: fault-free "
+                            "reconciliation steps granted past the "
+                            "horizon (default 1000)")
+    p_sim.add_argument("--events-dump", metavar="PATH", default=None,
+                       help="write every node's Lamport-stamped causal "
+                            "event log to PATH on exit")
+    _add_fault_plan_arg(p_sim)
+    _add_metrics_dump_arg(p_sim)
+    p_sim.set_defaults(fn=cmd_sim)
 
     p_info = sub.add_parser("info", help="torch, CUDA and card facts")
     p_info.set_defaults(fn=cmd_info)
 
     args = parser.parse_args(argv)
+    fr_path = (getattr(args, "flight_recorder", None)
+               or os.environ.get("MPIBT_FLIGHT_RECORDER"))
+    if fr_path:
+        from .telemetry import flight_recorder
+        flight_recorder.install(fr_path)
+        flight_recorder.register_context(command=args.command)
     fault_arg = getattr(args, "fault_plan", None)
     if fault_arg is None and hasattr(args, "fault_plan"):
         # The environment arms only the subcommand that takes the flag.

@@ -1,22 +1,27 @@
 """CLI: ``python -m mpi_blockchain_tpu_torch.resilience {smoke,plan}``.
 
-``smoke`` drives the port's resilience through its real CLI, in two
-phases (the reference's ``smoke_kill_resume`` and ``smoke_degradation``):
+``smoke`` drives the port's resilience through its real CLI, in the
+reference's three phases:
 
-1. **Kill + resume.** A miner subprocess that checkpoints every block is
+1. **Determinism.** One fixed-seed fault plan (a ``corrupt`` and a
+   ``partial`` window on ``sim.deliver``, a ``partial`` window on the
+   search rung's site) drives two identical faulted simulations; their
+   causal event dumps must be byte-identical.
+2. **Kill + resume.** A miner subprocess that checkpoints every block is
    SIGKILLed mid-run; the resume must load the last atomic checkpoint,
    mine on to the target and verify, and, after a deliberate tear of the
    checkpoint's tail, truncate to the last valid block and mine on again.
    The subprocess's dispatch site hangs at its sixth call (a real sleep of
    ``KILL_HANG_S``), so the kill always lands within the first few blocks,
    whatever the device's speed.
-2. **Step-down.** A fault plan kills every ``backend.cuda.dispatch``; the
+3. **Step-down.** A fault plan kills every ``backend.cuda.dispatch``; the
    ladder must walk down to ``cpu`` and still converge with rc 0 on the
    chain the C++ sweep mines (``--backend cpu``).
 
-``--device cpu`` (the default here) runs both on the CPU; ``--device cuda``
-on the card. The reference's third phase, ``smoke_determinism``, drives the
-simulation, which is not ported yet.
+``--device cuda`` (the default, as on ``mine`` and ``sim``) runs them on
+the card, where the plan's search fault lands on ``backend.cuda.dispatch``,
+the rung that runs; ``--device cpu`` runs them on the CPU (the C++ sweep,
+whose fault site ``backend.cpu.search`` the reference's plan names).
 
 ``plan --seed N`` prints the plan ``--fault-plan seed:N`` would arm.
 """
@@ -25,6 +30,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -60,7 +66,37 @@ def _device_args(device: str) -> tuple[list[str], str]:
     return ["--device", device], "backend.cuda.dispatch"
 
 
-def smoke_kill_resume(tmp: pathlib.Path, device: str = "cpu",
+def smoke_determinism(tmp: pathlib.Path, device: str = "cuda") -> dict:
+    """Runs the same faulted ``sim`` twice on ``device`` and holds the two
+    causal dumps byte for byte. The plan is the reference's, with its
+    search fault on the site of the rung that runs on ``device``. Returns
+    the dump's size and sha256 and the run's summary."""
+    dev_args, site = _device_args(device)
+    plan = {"version": 1, "seed": 5, "faults": [
+        {"site": "sim.deliver", "kind": "corrupt", "call": 2, "times": 2},
+        {"site": "sim.deliver", "kind": "partial", "call": 7, "times": 3},
+        {"site": site, "kind": "partial", "call": 5, "times": 2},
+    ]}
+    plan_path = tmp / f"determinism_{device}.json"
+    plan_path.write_text(json.dumps(plan))
+    dumps = []
+    for i in range(2):
+        dump = tmp / f"dump_{device}_{i}.json"
+        rc, out = _run_cli(["sim", "--blocks", "4", "--partition-steps",
+                            "10", "--drop-rate", "10", "--seed", "3",
+                            *dev_args, "--fault-plan", str(plan_path),
+                            "--events-dump", str(dump)])
+        assert rc == 0, f"faulted sim run {i} rc={rc}: {out}"
+        assert out.get("converged") is True, out
+        dumps.append(dump.read_bytes())
+    assert dumps[0] == dumps[1], (
+        f"a fixed-seed fault plan gave diverging causal dumps "
+        f"({len(dumps[0])} vs {len(dumps[1])} bytes)")
+    return {"faults": len(plan["faults"]), "dump_bytes": len(dumps[0]),
+            "sha256": hashlib.sha256(dumps[0]).hexdigest(), "summary": out}
+
+
+def smoke_kill_resume(tmp: pathlib.Path, device: str = "cuda",
                       difficulty: int = 10, blocks: int = 10) -> dict:
     """SIGKILLs a checkpointing miner on ``device`` after its third block,
     resumes from the checkpoint to ``blocks``, verifies, then tears the
@@ -150,7 +186,7 @@ def _checkpoint_height(ck: pathlib.Path) -> int:
     return len(payload) // core.HEADER_SIZE - 1
 
 
-def smoke_degradation(tmp: pathlib.Path, device: str = "cpu") -> dict:
+def smoke_degradation(tmp: pathlib.Path, device: str = "cuda") -> dict:
     """Kills every ``backend.cuda.dispatch`` on ``device`` (d8, 2 blocks,
     batch 2^11): the run must step down to ``cpu``, exit 0, and mine the
     chain of the ``--backend cpu`` oracle. Returns both summaries."""
@@ -175,6 +211,10 @@ def smoke_degradation(tmp: pathlib.Path, device: str = "cpu") -> dict:
 def cmd_smoke(args) -> int:
     with tempfile.TemporaryDirectory() as td:
         tmp = pathlib.Path(td)
+        got = smoke_determinism(tmp, device=args.device)
+        print(f"smoke: determinism ok ({got['faults']} faults, "
+              f"{got['dump_bytes']}-byte causal dump byte-identical across "
+              f"2 runs, sha256 {got['sha256']})", flush=True)
         got = smoke_kill_resume(tmp, device=args.device)
         print(f"smoke: kill+resume ok {json.dumps(got, sort_keys=True)}",
               flush=True)
@@ -196,12 +236,15 @@ def cmd_plan(args) -> int:
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m mpi_blockchain_tpu_torch.resilience",
-        description="resilience gate: kill+resume recovery and the "
-                    "step-down ladder, through the port's CLI")
+        description="resilience gate: faulted-sim determinism, "
+                    "kill+resume recovery and the step-down ladder, "
+                    "through the port's CLI")
     sub = parser.add_subparsers(dest="command", required=True)
     p_smoke = sub.add_parser("smoke", help="run the resilience smoke")
-    p_smoke.add_argument("--device", choices=("cpu", "cuda"),
-                         default="cpu")
+    p_smoke.add_argument("--device", choices=("cuda", "cpu"),
+                         default="cuda",
+                         help="where the phases run (default cuda: the "
+                              "card; cpu: the C++ sweep)")
     p_smoke.set_defaults(fn=cmd_smoke)
     p_plan = sub.add_parser("plan", help="print the plan --fault-plan "
                                          "seed:N would arm")

@@ -100,7 +100,8 @@ def _query(ready) -> bool:
         return True
 
 
-def ladder_from_config(config, group=None) -> list[Rung]:
+def ladder_from_config(config, group=None,
+                       cpu_ranks: int | None = None) -> list[Rung]:
     """The step-down ladder a MinerConfig implies, top rung first:
     ``cuda:<kernel>`` (the kernel ``config.kernel`` resolves to on the
     device) → ``cuda:torch`` → ``cpu``. ``cuda:torch`` is left out when the
@@ -112,14 +113,17 @@ def ladder_from_config(config, group=None) -> list[Rung]:
 
     The cuda rungs split each round over ``config.n_miners`` miners, in
     ``group`` when one is given; the ``cpu`` rung runs that many C++ ranks
-    in this process, as the reference's does. In a world of processes a
+    in this process, as the reference's does, or ``cpu_ranks`` when given
+    (``SimNode`` runs each group as one rank). In a world of processes a
     retry or a step-down on one rank is not seen by the others, so the
     ranks' collectives can fall out of step; the reference has the same
     exposure, and its elastic mesh is the answer (not ported yet)."""
     from ..backend import get_backend
 
+    n_ranks = config.n_miners if cpu_ranks is None else cpu_ranks
+
     def cpu_factory():
-        return get_backend("cpu", n_ranks=config.n_miners,
+        return get_backend("cpu", n_ranks=n_ranks,
                            batch_size=config.batch_size)
 
     if config.backend == "cpu":

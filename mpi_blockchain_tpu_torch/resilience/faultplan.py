@@ -23,11 +23,11 @@ injection counters reset at arm time, so a faulted run replays exactly.
 ``SITES`` is the reference's list, in its order and of its length, with
 ``backend.tpu.dispatch`` renamed ``backend.cuda.dispatch``: a seed derives
 the reference's plan up to that one name. The port hooks
-``backend.cuda.dispatch``, ``backend.cpu.search``, ``native.load``,
-``checkpoint.write``, ``checkpoint.read`` and ``distributed.init``. The
-other sites belong to modules that are not ported yet (the simulation bus,
-the elastic mesh, the serving front door): a plan may name them, and they
-never fire.
+``backend.cuda.dispatch``, ``backend.cpu.search``, ``sim.deliver``,
+``native.load``, ``checkpoint.write``, ``checkpoint.read``,
+``distributed.init`` and ``sim.churn``. The other sites belong to modules
+that are not ported yet (the elastic mesh, the serving front door): a
+plan may name them, and they never fire.
 """
 from __future__ import annotations
 
@@ -43,12 +43,18 @@ from . import FaultPlanError
 SITES = (
     "backend.cuda.dispatch",  # CudaBackend.search, before the launch
     "backend.cpu.search",     # CpuBackend.search, before the C++ sweep
-    "sim.deliver",            # not ported: the simulation bus
+    "sim.deliver",            # Network.deliver_due, per delivery attempt:
+    #                           raise/hang crash the sim step, partial
+    #                           loses the delivery, corrupt damages the
+    #                           header in flight (consensus rejects it)
     "native.load",            # core/build.ensure_built, before the build
     "checkpoint.write",       # utils/checkpoint.save_chain
     "checkpoint.read",        # utils/checkpoint.load_chain
     "distributed.init",       # parallel/distributed.init_distributed
-    "sim.churn",              # not ported: the vectorized simulation
+    "sim.churn",              # sim/vecnet.VecNetwork, once per step:
+    #                           a fired corrupt/partial fault
+    #                           crash-restarts a seeded-chosen live node;
+    #                           raise/hang crash the step
     "parallel.collective",    # not ported: the elastic mesh
     "mesh.rank_death",        # not ported: the elastic mesh
     "service.submit",         # not ported: the serving front door

@@ -1,18 +1,22 @@
-"""Telemetry of the port: a metrics registry, spans and a JSON-lines
-event stream.
+"""Telemetry of the port: a metrics registry, spans, a JSON-lines event
+stream, causal logs and the crash flight recorder.
 
 The port's copy of the part of the reference's ``telemetry`` package that
 the port's layers use: counters, gauges and histograms on a process-local
 registry (``registry``), host spans filed as ``span_seconds``
-(``spans``), the event stream (``events``), a progress heartbeat gauge
-and a Prometheus dump. The flight recorder, the profiler capture and the
-rest of the observability wait for a later slice of the port. All of it
-is host-side and standard library only.
+(``spans``), the event stream (``events``), the simulation's Lamport-clock
+causal logs (``causal``), the crash dump of all of these on an abnormal
+exit (``flight_recorder``, ``--flight-recorder`` on mine/sim/bench), a
+progress heartbeat gauge and a Prometheus dump. The profiler capture and
+the rest of the observability wait for a later slice of the port. All of
+it is host-side and standard library only.
 """
 from __future__ import annotations
 
 import pathlib
 
+from .causal import (CausalLog, LamportClock,  # noqa: F401
+                     dump_causal_logs, load_causal_dump)
 from .events import clear_events, emit_event, recent_events  # noqa: F401
 from .registry import (Counter, Gauge, Histogram,  # noqa: F401
                        MetricError, Registry, default_registry, reset,

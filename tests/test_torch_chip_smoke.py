@@ -1,6 +1,11 @@
 """The plain helpers of ``chip_smoke.py``, on synthetic input: those that
-turn its measurements into numbers, and those that build phase 6's fault
-plans, environments and checks. No card needed."""
+turn its measurements into numbers, those that build phase 6's fault
+plans, environments and checks, and phase 9's bounded-search cases and
+pins. No card needed."""
+import contextlib
+import hashlib
+import io
+import json
 import os
 
 import numpy as np
@@ -188,3 +193,60 @@ def test_span_ms_per_block_reads_span_seconds():
     assert got["miner.append"] == pytest.approx(0.5)
     assert got["backend.cuda.host_tail"] == 0.0
     assert set(got) == set(chip_smoke.SPAN_NAMES)
+
+
+def test_bounded_search_cases_cover_every_budget_and_start():
+    from mpi_blockchain_tpu_torch import core
+
+    cases = chip_smoke.bounded_search_cases(np.random.default_rng(5))
+    seen = {(d, n) for _, d, _, n in cases}
+    for d in chip_smoke.SIM_BOUNDED_DBITS:
+        for count in chip_smoke.SIM_BOUNDED_COUNTS:
+            assert (d, count) in seen
+    assert all(0 <= start and start + n <= 1 << 32 and n >= 1
+               for _, _, start, n in cases)
+    ends = [start + n for _, _, start, n in cases]
+    assert ends.count(1 << 32) >= 4 * len(chip_smoke.SIM_BOUNDED_COUNTS)
+    assert any(start == 0 for _, _, start, _ in cases)
+    odd = [(start, n) for _, _, start, n in cases
+           if 0 < start and start + n < 1 << 32]
+    assert odd and all(start % n == 0 and (start // n) % 2 == 1
+                       for start, n in odd)
+    winners = [c for c in cases
+               if core.cpu_search(c[0], c[2], c[3], c[1])[0] is not None]
+    assert {d for _, d, _, _ in winners} == set(chip_smoke.SIM_BOUNDED_DBITS)
+
+
+@pytest.mark.parametrize("which", ["preset", "never"])
+def test_sim_pins_are_what_the_cpp_sweep_gives(tmp_path, which):
+    """Phase 9's pins, made once by the reference package, hold for the
+    port's ``sim`` on the C++ sweep here: the same summary and dump."""
+    from mpi_blockchain_tpu_torch import cli
+    from mpi_blockchain_tpu_torch.telemetry import reset
+
+    reset()
+    if which == "preset":
+        argv, pin = ["--difficulty", "16", "--blocks", "20"], \
+            chip_smoke.SIM_PRESET_PIN
+    else:
+        argv, pin = list(chip_smoke.SIM_NEVER_ARGS), {
+            **chip_smoke.SIM_NEVER_PIN["summary"],
+            "dump_sha256": chip_smoke.SIM_NEVER_PIN["dump_sha256"]}
+    dump = tmp_path / f"{which}.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["sim", *argv, "--backend", "cpu", "--events-dump",
+                       str(dump)])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert rc == (0 if which == "preset" else 1)
+    assert {k: summary.get(k) for k in pin if k != "dump_sha256"} == \
+        {k: v for k, v in pin.items() if k != "dump_sha256"}
+    assert hashlib.sha256(dump.read_bytes()).hexdigest() == \
+        pin["dump_sha256"]
+
+
+def test_determinism_pin_is_the_cpp_sweeps(tmp_path):
+    from mpi_blockchain_tpu_torch.resilience.__main__ import \
+        smoke_determinism
+    got = smoke_determinism(tmp_path, device="cpu")
+    assert got["sha256"] == chip_smoke.SIM_DETERMINISM_SHA256

@@ -64,7 +64,9 @@ then:
    card is SIGKILLed, resumed to 10 blocks and verified, at the pinned tip;
    (a) also prints each run's host time a block by span (``miner.block``,
    ``miner.sweep``, ``miner.append``, ``backend.cuda.dispatch``,
-   ``backend.cuda.host_tail``, from ``span_seconds``); (f) an early-exit
+   ``backend.cuda.host_tail``, from ``span_seconds``) and the host time
+   of the ``Miner``'s per-block telemetry with the kill switch off and on
+   (``telemetry_us_per_block``); (f) an early-exit
    sweep of [0, 2^32) at dbits 64 (it runs its whole length, about half a
    second) consumed by the pipelined ``Miner`` with a 0.05 s
    ``MPIBT_DISPATCH_TIMEOUT`` raises "dispatch wedged" within a few times
@@ -103,6 +105,37 @@ then:
    a flight-recorder dump with the causal logs; (f) the kernel at the
    budgets a group's search takes (``bounded_search_cases``) against the
    plain version and ``cpu_search``.
+10. the blockserve front door (``serve``, ``mine --serve-metrics``): (a)
+   the serve smoke (``python -m mpi_blockchain_tpu_torch.service smoke``)
+   on the card at the reference's shape (d12, 6 blocks, seed 1337, pool
+   cap 8, 4 transactions a template, batches of 10 and 16 requests, a 5 s
+   deadline): a strict plan hangs ``service.submit``, raises at
+   ``service.rebuild`` and raises at ``backend.cuda.dispatch`` for the
+   second block's sweep and both its retries, so ``cuda:cuda`` steps down
+   to ``cuda:torch`` and the door stamps ``degraded``; every request
+   answers with a typed shed or a receipt, no accepted transaction is
+   lost, admission is conserved, the chain equals a sequential replay of
+   the door's templates on the C++ sweep, the kernel equals the plain
+   sweep and ``cpu_search`` on the served headers, and the payload is
+   inside the ``serve`` bound; (b) ``serve`` at full width (``SERVE_ARGS``: d24, 2^24,
+   1000 blocks, the default door: pool cap 512, 16 transactions a
+   template, 5 s deadline) while ``run_load`` streams ``SERVE_LOAD`` (seed
+   1337, 2000 requests, 4 workers), in turns with the same run without
+   load (``SERVE_TURNS``), and the same load against an idle door: every
+   request answers, no accepted transaction is lost, the loaded chain
+   equals a replay of its recorded per-height payloads through the
+   sequential ``Miner`` on the card, the winners at two heights chosen
+   from the seed are the lowest (``cpu_search`` over [0, winner]) and the
+   kernel equals the plain sweep and ``cpu_search`` around them
+   (``served_cases``), the quiet chains are the d24/n1000 pin; it prints requests/s, p99 and max
+   latency, shed fraction, mempool high-water, transactions included, the
+   walls with and without load, ``miner.sweep`` and
+   ``backend.cuda.dispatch`` ms a block, and the speculative discards by
+   reason; (c) ``mine --serve-metrics 0`` at the d20/n10/b20 pin: from
+   inside the run (the ``_block_mined`` seam) ``/healthz`` answers 200
+   with a fresh ``miner_heartbeat`` at block 5, and ``/metrics`` shows
+   ``blocks_mined_total`` 10 and ``hashes_tried_total`` equal to the
+   summary's ``hashes_tried`` at block 10.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -111,7 +144,7 @@ plan did not cause.
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line; with no CUDA device it fails at once. It takes about
-six minutes on one NVIDIA H100, the builds included.
+seven minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
@@ -170,6 +203,8 @@ MINER_TURNS = ("wrapped", "raw", "raw", "wrapped")
 # The spans whose seconds phase 6 (a) splits a block's host time into.
 SPAN_NAMES = ("miner.block", "miner.sweep", "miner.append",
               "backend.cuda.dispatch", "backend.cuda.host_tail")
+# Phase 6 (a): the calls that price the Miner's per-block telemetry.
+TELEMETRY_CALLS = 20000
 # Phase 6 (f): the consume budget of the wedged sweep.
 WEDGE_BUDGET_S = 0.05
 # Phase 7: the sweep bench's length and logical miners.
@@ -246,6 +281,21 @@ SIM_SHAPE_DBITS = 16
 # (f): the budgets a group's bounded search takes, and where it starts.
 SIM_BOUNDED_COUNTS = (1, 8, 31, 32, 33, 256)
 SIM_BOUNDED_DBITS = (8, 16)
+# Phase 10: the front door. (b) the full-width served chain and its seeded
+# load (the reference's default door knobs), the order of the runs with
+# and without load, and how many heights' winners are held against the
+# C++ sweep; (c) the --serve-metrics run and the heights at which the
+# probe scrapes /healthz and /metrics from inside it.
+SERVE_ARGS = ("--difficulty", "24", "--batch-pow2", "24", "--blocks", "1000")
+SERVE_LOAD = {"seed": 1337, "n": 2000, "workers": 4}
+SERVE_TURNS = ("load", "quiet", "quiet", "load")
+SERVE_CHECKED_HEIGHTS = 2
+SERVE_METRICS_ARGS = ("--difficulty", "20", "--blocks", "10",
+                      "--batch-pow2", "20")
+SERVE_PROBE_HEIGHTS = {"healthz": 5, "metrics": 10}
+# (a), (b): the kernel against the plain version and the C++ sweep on the
+# served chains' own headers, over this many nonces each side of a winner.
+SERVE_WINDOW_HALF = 1 << 15
 
 
 class SmokeFailure(Exception):
@@ -1265,6 +1315,11 @@ def phase_resilience(device) -> dict:
             f"(median wall minus median sweeps: "
             f"{(wall - kernel) / 1000 * 1e3:.4f} ms); by span, ms a block: "
             f"{[{k: round(v, 6) for k, v in r['span_ms_per_block'].items()} for r in rs]}")
+    cost = out["telemetry_us_per_block"] = telemetry_us_per_block()
+    log(f"phase 6a the Miner's per-block telemetry (_count_sweep and "
+        f"_finalize_block, {TELEMETRY_CALLS} calls, in turns on, off, off, "
+        f"on): {cost['on']:.4f} us a block on, {cost['off']:.4f} off, "
+        f"{cost['cost']:.4f} us for the counters, heartbeats and histogram")
 
     with tempfile.TemporaryDirectory() as td:
         tmp = pathlib.Path(td)
@@ -1344,6 +1399,40 @@ def phase_resilience(device) -> dict:
             f"verified, tip matches the pin; torn tail truncated to "
             f"{got['torn_truncated_to']} and re-mined")
     return out
+
+
+def telemetry_us_per_block(n: int = TELEMETRY_CALLS) -> dict[str, float]:
+    """The host time of the ``Miner``'s per-block telemetry on this
+    machine, in us a block: its ``_count_sweep`` (one consumed sweep a
+    block at d24) and ``_finalize_block``, ``n`` times with the telemetry
+    on and off (the kill switch: the helpers hand out the null metric), in
+    turns on, off, off, on, medians. ``cost`` is on minus off: what the
+    counters, the heartbeats and the latency histogram cost a block."""
+    import statistics
+
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.backend.cpu import CpuBackend
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import BlockRecord, Miner
+
+    miner = Miner(MinerConfig(difficulty_bits=8, n_blocks=1, backend="cpu"),
+                  backend=CpuBackend())
+    rec = BlockRecord(height=1, nonce=0, hash="00" * 32, wall_ms=2.7,
+                      hashes_tried=1 << 24)
+    times: dict[str, list[float]] = {"on": [], "off": []}
+    for label in ("on", "off", "off", "on"):
+        prev = telemetry.set_telemetry_disabled(label == "off")
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                miner._count_sweep("cuda", 1 << 24)
+                miner._finalize_block(rec, "cuda")
+            times[label].append((time.perf_counter() - t0) / n * 1e6)
+        finally:
+            telemetry.set_telemetry_disabled(prev)
+        miner.records.clear()
+    on, off = (statistics.median(times[k]) for k in ("on", "off"))
+    return {"on": on, "off": off, "cost": on - off}
 
 
 def host_ms_per_block(run: dict, blocks: int) -> float:
@@ -1939,6 +2028,381 @@ def phase_sim(device) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recording_payloads():
+    """Records every payload the front door's template feed hands the
+    miner, per height (the last read wins, as the mined block embeds the
+    boundary-time template); the feed's own history keeps only the last
+    256 heights."""
+    from mpi_blockchain_tpu_torch.service.frontdoor import TemplateFeed
+
+    real, payloads = TemplateFeed.payload_for, {}
+
+    def recording(self, height):
+        data = real(self, height)
+        payloads[height] = data
+        return data
+    TemplateFeed.payload_for = recording
+    try:
+        yield payloads
+    finally:
+        TemplateFeed.payload_for = real
+
+
+def discards_by_reason() -> dict[str, float]:
+    """``speculative_discards_total`` by reason since the last reset."""
+    from mpi_blockchain_tpu_torch import telemetry
+
+    return {dict(m.labels)["reason"]: m.value
+            for m in telemetry.default_registry().metrics()
+            if m.name == "speculative_discards_total"}
+
+
+def checked_heights(seed: int, blocks: int) -> list[int]:
+    """SERVE_CHECKED_HEIGHTS heights in [1, blocks], chosen from the
+    seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return sorted(int(h) for h in rng.choice(
+        np.arange(1, blocks + 1), SERVE_CHECKED_HEIGHTS, replace=False))
+
+
+def lowest_winner(blob: bytes, height: int, dbits: int) -> tuple[int, int]:
+    """(the nonce of the block at ``height`` in a chain file, the C++
+    sweep's lowest qualifying nonce over [0, that nonce])."""
+    from mpi_blockchain_tpu_torch import core
+
+    header = blob[80 * height:80 * height + 80]
+    nonce = int.from_bytes(header[76:80], "little")
+    found, _ = core.cpu_search(header, 0, nonce + 1, dbits)
+    return nonce, found
+
+
+def served_cases(blob: bytes, heights, dbits: int,
+                 half: int = SERVE_WINDOW_HALF) -> list[tuple]:
+    """The serve path's own inputs for ``bounded_vs_plain``: for each
+    height, that block's header from a served chain file and the nonces
+    around its winner, [winner - half, winner + half) clamped to [0,
+    2^32)."""
+    cases = []
+    for h in heights:
+        header = blob[80 * h:80 * h + 80]
+        winner = int.from_bytes(header[76:80], "little")
+        start = max(0, winner - half)
+        end = min(NONCE_SPACE, winner + half)
+        cases.append((header, dbits, start, end - start))
+    return cases
+
+
+def serve_run(argv: list[str], load: dict | None) -> dict:
+    """``serve`` through the port's CLI on a thread, with ``run_load``
+    streaming ``load`` at its door from this thread while it mines (or
+    no load). The kernels' launch counts are set to 0 just before and read
+    just after. Returns the summary, the load's report, the door's state,
+    the payloads it handed the miner, the launches, spans and discards."""
+    import torch
+
+    from mpi_blockchain_tpu_torch import service, telemetry
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+    from mpi_blockchain_tpu_torch.service.loadgen import run_load
+
+    done: dict = {}
+    installed = threading.Event()
+    install = service.install_service
+
+    def installing(*args, **kwargs):
+        done["state"] = install(*args, **kwargs)
+        installed.set()
+        return done["state"]
+
+    def run():
+        try:
+            done["rc"], done["summary"] = run_cli(["serve", *argv,
+                                                   "--port", "0"])
+        except BaseException as e:     # re-raised on the smoke's thread
+            done["error"] = e
+        finally:
+            installed.set()
+
+    telemetry.reset()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    sha256_cuda.launches = sha256_block.step_launches = 0
+    service.install_service = installing
+    try:
+        with recording_payloads() as payloads:
+            thread = threading.Thread(target=run, name="serve", daemon=True)
+            thread.start()
+            installed.wait(timeout=120)
+            state, report = done.get("state"), None
+            if load is not None and state is not None:
+                report = run_load(state.server.url("/"), seed=load["seed"],
+                                  n=load["n"], workers=load["workers"],
+                                  mempool_probe=state.mempool.depth)
+                report["ended_before_chain"] = thread.is_alive()
+            thread.join(timeout=600)
+    finally:
+        service.install_service = install
+    launches, steps = sha256_cuda.launches, sha256_block.step_launches
+    if "error" in done:
+        raise done["error"]
+    check(not thread.is_alive() and done.get("rc") == 0
+          and state is not None, f"serve {' '.join(argv)}: rc "
+          f"{done.get('rc')}, {done.get('summary')}")
+    return {"summary": done["summary"], "report": report, "state": state,
+            "payloads": dict(payloads), "launches": launches,
+            "step_launches": steps, "discards": discards_by_reason(),
+            "span_s": {name: telemetry.span_seconds(name)
+                       for name in ("miner.sweep", "backend.cuda.dispatch")}}
+
+
+def check_load(report: dict, state, n: int, what: str) -> None:
+    """Every request answered, typed, and no accepted tx lost."""
+    check(report["requests"] == n and report["errors"] == 0
+          and report["untyped_sheds"] == 0,
+          f"{what}: {report['requests']} of {n} answered, outcomes "
+          f"{report['by_outcome']}")
+    lost = [t for t in report["accepted_txids"]
+            if state.tx_status(t)[0] != 200]
+    check(not lost, f"{what}: accepted then lost: {lost[:4]}")
+
+
+def serve_row(run: dict, blocks: int) -> dict:
+    """The numbers phase 10 (b) prints for one ``serve_run``: the chain's
+    wall (the summary's), launches, discards and their share of the
+    launches, the two spans a block, inclusion, and the load's report."""
+    rep, svc = run["report"] or {}, run["summary"]["service"]
+    launches = run["launches"]
+    discards = sum(run["discards"].values())
+    return {
+        "wall_s": run["summary"]["wall_s"], "launches": launches,
+        "discards": run["discards"],
+        "discarded_share": discards / launches if launches else None,
+        "sweep_ms_per_block": 1e3 * run["span_s"]["miner.sweep"] / blocks,
+        "dispatch_ms_per_block":
+            1e3 * run["span_s"]["backend.cuda.dispatch"] / blocks,
+        "included": svc["mempool"]["included_total"],
+        "mempool_depth_max": svc["mempool"]["depth_max"],
+        "load_wall_s": rep.get("wall_s"),
+        **{k: rep.get(k) for k in (
+            "requests_per_sec", "p99_latency_ms", "max_latency_ms",
+            "shed_fraction", "ended_before_chain", "shed_reasons")}}
+
+
+@contextlib.contextmanager
+def probing_blocks(heights: dict[str, int]):
+    """Scrapes the run's metrics server from inside the run: at the
+    heights in ``heights`` the ``Miner``'s ``_block_mined`` seam (after
+    the append, on the mining thread) reads ``/healthz`` or ``/metrics``.
+    Yields {name: (status, body)}."""
+    import urllib.error
+    import urllib.request
+
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+    from mpi_blockchain_tpu_torch.perfwatch.server import active_server
+
+    got: dict = {}
+    real = Miner._block_mined
+
+    def probe(self, rec):
+        real(self, rec)
+        for name, height in heights.items():
+            if rec.height != height:
+                continue
+            srv = active_server()
+            try:
+                with urllib.request.urlopen(srv.url(f"/{name}"),
+                                            timeout=10) as r:
+                    got[name] = (r.status, r.read().decode())
+            except urllib.error.HTTPError as e:
+                got[name] = (e.code, e.read().decode())
+    Miner._block_mined = probe
+    try:
+        yield got
+    finally:
+        Miner._block_mined = real
+
+
+def phase_serve(device) -> dict:
+    """Phase 10: the front door on the card, (a) to (c) as the module
+    docstring says. Returns its numbers."""
+    import statistics
+
+    import torch
+
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+    from mpi_blockchain_tpu_torch.service import __main__ as serve_smoke
+    from mpi_blockchain_tpu_torch.service import (Mempool, TemplateFeed,
+                                                  install_service,
+                                                  uninstall_service)
+    from mpi_blockchain_tpu_torch.service.loadgen import run_load
+
+    card = nvidia_smi("name,power.limit")
+    out: dict = {}
+    # (a) the serve smoke on the card.
+    telemetry.reset()
+    sha256_cuda.launches = sha256_block.step_launches = 0
+    t0 = time.perf_counter()
+    smoke = serve_smoke.smoke(device=device.type)
+    took = time.perf_counter() - t0
+    a = out["smoke"] = {k: smoke[k] for k in (
+        "requests_per_sec", "p99_latency_ms", "shed_fraction",
+        "mempool_depth_max", "included_total", "step_downs", "sheds",
+        "verdict", "faults_fired")}
+    a.update(launches=sha256_cuda.launches,
+             step_launches=sha256_block.step_launches, wall_s=took,
+             retries=telemetry.default_registry().total("retries_total"))
+    check(smoke["chain_identical"] and smoke["step_downs"] == ["cuda:torch"]
+          and a["launches"] > 0, f"10a: {a}")
+    history = {int(h): d.encode() for h, d in smoke["history"].items()}
+    replay = serve_smoke.replay_oracle(history, serve_smoke.SMOKE_BLOCKS,
+                                       serve_smoke.SMOKE_DIFFICULTY)
+    compared, mismatches, _ = bounded_vs_plain(served_cases(
+        replay.node.save(), sorted(history), serve_smoke.SMOKE_DIFFICULTY),
+        device)
+    a.update(kernel_vs_plain=compared, mismatches=mismatches)
+    check(mismatches == 0, f"10a: {mismatches} kernel/plain/C++ mismatches "
+          f"on the smoke's headers")
+    log(f"phase 10a serve smoke on the card (d12/n6, cap 8, 4 txs a "
+        f"template, batches 10 + 16): strict plan fired {a['faults_fired']} "
+        f"faults, stepped down {a['step_downs']}, degraded stamp, chain == "
+        f"the C++ replay of the door's templates; {a['launches']} kernel "
+        f"launches before the step-down; streamed batch "
+        f"{a['requests_per_sec']} requests/s, p99 {a['p99_latency_ms']} ms "
+        f"(bound {a['verdict']}), shed fraction {a['shed_fraction']}, "
+        f"mempool high-water {a['mempool_depth_max']}, included "
+        f"{a['included_total']}; {took:.3f} s; the kernel == the plain "
+        f"sweep == cpu_search on the served headers ({compared} "
+        f"comparisons, 0 mismatches); card {card}")
+
+    # (b) full width, with and without the seeded load, in turns.
+    blocks = int(SERVE_ARGS[SERVE_ARGS.index("--blocks") + 1])
+    runs: dict[str, list] = {"load": [], "quiet": []}
+    for turn in SERVE_TURNS:
+        run = serve_run(list(SERVE_ARGS),
+                        SERVE_LOAD if turn == "load" else None)
+        summary = run["summary"]
+        check(summary["height"] == blocks and run["launches"] > 0
+              and summary["service"]["degraded"] is False,
+              f"10b {turn}: {summary}")
+        if turn == "quiet":
+            check(summary["tip_hash"] == PINNED_TIPS[(24, 1000, 24)],
+                  f"10b quiet: tip {summary['tip_hash']} is not the pin")
+        else:
+            check_load(run["report"], run["state"], SERVE_LOAD["n"],
+                       "10b load")
+        runs[turn].append(run)
+    first = runs["load"][0]
+    cfg = MinerConfig(difficulty_bits=24, n_blocks=blocks, batch_pow2=24,
+                      backend="cuda", kernel="cuda", device="cuda")
+    replay = Miner(cfg, pipeline=False)
+    replay.payload_for = lambda h: first["payloads"][h]
+    sha256_cuda.launches = 0
+    replay.mine_chain()
+    replay_launches = sha256_cuda.launches
+    check(replay.node.tip_hash.hex() == first["summary"]["tip_hash"],
+          f"10b: the loaded chain {first['summary']['tip_hash']} is not "
+          f"the sequential replay's {replay.node.tip_hash.hex()}")
+    blob = first["state"].miner.node.save()
+    winners = {h: lowest_winner(blob, h, 24)
+               for h in checked_heights(SERVE_LOAD["seed"], blocks)}
+    check(all(n == f for n, f in winners.values()),
+          f"10b: winners (nonce, C++ lowest) {winners}")
+    compared, mismatches, _ = bounded_vs_plain(
+        served_cases(blob, sorted(winners), 24), device)
+    check(mismatches == 0, f"10b: {mismatches} kernel/plain/C++ mismatches "
+          f"on the served headers")
+    # The same load against an idle door: the door's own cost.
+    torch.cuda.synchronize()
+    telemetry.reset()
+    idle_miner = Miner(cfg)
+    pool = Mempool()
+    idle = install_service(idle_miner, port=0, mempool=pool,
+                           feed=TemplateFeed(pool, cfg))
+    try:
+        idle_report = run_load(idle.server.url("/"),
+                               seed=SERVE_LOAD["seed"], n=SERVE_LOAD["n"],
+                               workers=SERVE_LOAD["workers"],
+                               mempool_probe=pool.depth)
+    finally:
+        uninstall_service(idle)
+    check_load(idle_report, idle, SERVE_LOAD["n"], "10b idle door")
+
+    b = out["full_width"] = {
+        turn: [serve_row(r, blocks) for r in rs]
+        for turn, rs in runs.items()}
+    b["idle_door"] = {k: idle_report[k] for k in (
+        "requests_per_sec", "p99_latency_ms", "max_latency_ms",
+        "shed_fraction", "wall_s")}
+    b["replay_wall_s"] = sum(r.wall_ms for r in replay.records) / 1e3
+    b["replay_launches"] = replay_launches
+    b["winners"] = {str(h): nf[0] for h, nf in winners.items()}
+    b.update(kernel_vs_plain=compared, mismatches=mismatches)
+    out["step_launches"] = a["step_launches"] + sum(
+        r["step_launches"] for rs in runs.values() for r in rs)
+    for turn in ("load", "quiet"):
+        for r in b[turn]:
+            log(f"phase 10b serve {' '.join(SERVE_ARGS)}, {turn}: wall "
+                f"{r['wall_s']} s, {r['launches']} launches, discards "
+                f"{r['discards']} ({r['discarded_share']:.4f} of launches), "
+                f"miner.sweep {r['sweep_ms_per_block']:.6f} ms a block, "
+                f"backend.cuda.dispatch {r['dispatch_ms_per_block']:.6f} "
+                f"ms a block, included {r['included']}, mempool high-water "
+                f"{r['mempool_depth_max']}"
+                + ("" if turn == "quiet" else
+                   f"; load {r['requests_per_sec']} requests/s, p99 "
+                   f"{r['p99_latency_ms']} ms, max {r['max_latency_ms']} "
+                   f"ms, shed fraction {r['shed_fraction']} "
+                   f"{r['shed_reasons']}, load wall {r['load_wall_s']} s, "
+                   f"ended before the chain: {r['ended_before_chain']}"))
+    walls = {t: statistics.median(r["wall_s"] for r in b[t])
+             for t in ("load", "quiet")}
+    log(f"phase 10b medians: wall with load {walls['load']} s, without "
+        f"{walls['quiet']} s ({walls['load'] / walls['quiet']:.4f} x); the "
+        f"same load at an idle door: {b['idle_door']}; the loaded chain == "
+        f"its sequential replay on the card ({b['replay_wall_s']:.6f} s, "
+        f"{replay_launches} launches); winners at heights "
+        f"{sorted(winners)} are the C++ sweep's lowest, and the kernel == "
+        f"the plain sweep == cpu_search around them ({b['kernel_vs_plain']} "
+        f"comparisons, 0 mismatches); card {card}")
+
+    # (c) mine --serve-metrics 0 at the d20/n10/b20 pin.
+    telemetry.reset()
+    sha256_cuda.launches = 0
+    with probing_blocks(SERVE_PROBE_HEIGHTS) as got:
+        rc, summary = run_cli(["mine", *SERVE_METRICS_ARGS,
+                               "--serve-metrics", "0"])
+    launches = sha256_cuda.launches
+    check(rc == 0 and summary.get("tip_hash") == PINNED_TIPS[(20, 10, 20)],
+          f"10c: rc {rc}, {summary}")
+    code, body = got.get("healthz", (None, "{}"))
+    health = json.loads(body)
+    beat = health.get("heartbeats", {}).get("miner_heartbeat", {})
+    check(code == 200 and health.get("status") == "ok"
+          and beat.get("value") == 5 and beat.get("age_s") is not None
+          and beat["age_s"] < 30, f"10c /healthz mid-run: {code} {health}")
+    prom = got.get("metrics", (None, ""))[1]
+    blocks_mined = metric_total(prom, "blocks_mined_total")
+    hashes = metric_total(prom, "hashes_tried_total")
+    check(blocks_mined == 10 and hashes == summary["hashes_tried"],
+          f"10c /metrics: blocks_mined_total {blocks_mined}, "
+          f"hashes_tried_total {hashes}, summary {summary['hashes_tried']}")
+    out["serve_metrics"] = {"healthz_age_s": beat["age_s"],
+                            "blocks_mined_total": blocks_mined,
+                            "hashes_tried_total": hashes,
+                            "launches": launches}
+    log(f"phase 10c mine --serve-metrics 0 d20/n10/b20: tip matches the "
+        f"pin, {launches} launches; /healthz at block 5: 200 ok, "
+        f"miner_heartbeat 5 aged {beat['age_s']} s; /metrics at block 10: "
+        f"blocks_mined_total {blocks_mined:.0f}, hashes_tried_total "
+        f"{hashes:.0f} == the summary's")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1982,6 +2446,7 @@ def main() -> int:
         mesh = phase_mesh(device, chain, fused[(24, 1000)],
                           chain["d20_wall_s"])
         sim = phase_sim(device)
+        serve = phase_serve(device)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2008,8 +2473,16 @@ def main() -> int:
         "launches_sim_adversarial": sim["preset"]["launches"],
         "launches_sim_d24": sim["d24"]["launches"],
         "bounded_mismatches": sim["bounded"]["mismatches"],
+        "launches_serve_smoke": serve["smoke"]["launches"],
+        "launches_serve_d24_n1000": {
+            turn: [r["launches"] for r in rs] for turn, rs in
+            serve["full_width"].items() if turn in ("load", "quiet")},
+        "launches_serve_metrics_d20_n10":
+            serve["serve_metrics"]["launches"],
+        "serve_mismatches": serve["smoke"]["mismatches"]
+        + serve["full_width"]["mismatches"],
         "bench": bench, "mesh8": mesh, "resilience": resilience,
-        "sim": sim}, {
+        "sim": sim, "serve": serve}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",
@@ -2018,6 +2491,7 @@ def main() -> int:
         "launches_mesh8_fused_d24_n1000": mesh["fused"]["steps"],
         "launches_sim_adversarial": sim["preset"]["step_launches"],
         "launches_sim_d24": sim["d24"]["step_launches"],
+        "launches_serve": serve["step_launches"],
         "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
         "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
     log(json.dumps({"ok": True, "device": {

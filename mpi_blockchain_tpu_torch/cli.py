@@ -18,6 +18,10 @@
     python -m mpi_blockchain_tpu_torch sim --difficulty 24 --blocks 12 \
         --nonce-budget-pow2 24 --batch-pow2 24 --partition-steps 8
     python -m mpi_blockchain_tpu_torch sim --preset adversarial-bench
+    python -m mpi_blockchain_tpu_torch serve --difficulty 24 --blocks 1000 \
+        --batch-pow2 24 --port 9100
+    python -m mpi_blockchain_tpu_torch mine --serve 9100 --difficulty 20
+    python -m mpi_blockchain_tpu_torch mine --serve-metrics 0 --difficulty 20
     python -m mpi_blockchain_tpu_torch info
 
 Flags keep the reference CLI's names. ``mine`` runs on the card unless
@@ -48,6 +52,19 @@ seeded lottery in numpy on the host in both packages. ``sim`` exits 1 when
 the run does not converge (the flight recorder dumps, if armed);
 ``--events-dump`` writes every node's causal log, the same bytes the
 reference writes for the same run.
+
+``serve`` mines a chain while the blockserve front door
+(``service/``) takes transactions over HTTP: ``POST /submit``, ``GET
+/tx_status``, ``/chain``, ``/template``, with ``/metrics``, ``/healthz`` and
+``/events``; a bounded fee-ordered mempool feeds each block's template
+through the miner's ``payload_for`` seam. ``mine --serve PORT`` attaches
+the same door to a mine run (not with ``--fused``, whose device loop
+never reads ``payload_for``, and not in a world of processes, whose ranks
+must search the same header). ``--serve-metrics PORT`` (or
+``MPIBT_METRICS_PORT``) on mine, sim, bench and serve serves
+``/metrics``, ``/healthz`` and ``/events`` for the run's length
+(``perfwatch/server.py``); port 0 binds a free port, announced on stderr.
+Like ``mine``, ``serve`` runs on the card unless ``--device cpu``.
 
 ``mine`` searches through the resilience layer's ``ResilientBackend``
 (retries, host re-validation of every winner, the step-down ladder
@@ -108,6 +125,34 @@ def _add_metrics_dump_arg(p: argparse.ArgumentParser) -> None:
                         "init that hangs) dump events, causal logs and a "
                         "metrics snapshot to PATH (env "
                         "MPIBT_FLIGHT_RECORDER also arms it)")
+    p.add_argument("--serve-metrics", metavar="PORT", type=int, default=None,
+                   help="serve /metrics, /healthz, /events over HTTP for "
+                        "the duration of the run (0 = ephemeral port, "
+                        "announced on stderr; env MPIBT_METRICS_PORT also "
+                        "enables it)")
+
+
+def _add_config_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--preset", choices=sorted(PRESETS),
+                   help="named config (overrides the other flags except "
+                        "--device)")
+    p.add_argument("--difficulty", type=int, default=16,
+                   help="leading-zero bits (default 16)")
+    p.add_argument("--blocks", type=int, default=10)
+    p.add_argument("--miners", type=int, default=1,
+                   help="miners that split each round: C++ ranks of the cpu "
+                        "backend, logical miners of the cuda backend in this "
+                        "process")
+    p.add_argument("--backend", choices=BACKENDS, default="cuda")
+    p.add_argument("--kernel", choices=KERNELS, default="auto",
+                   help="sweep kernel of the cuda backend: the CUDA kernel, "
+                        "the plain PyTorch version, or auto (by device)")
+    p.add_argument("--batch-pow2", type=_batch_pow2_arg, default=20,
+                   help="log2 nonces per sweep round, or 'auto' to track "
+                        "the difficulty (clamped to [13, 24])")
+    p.add_argument("--device", choices=DEVICES, default="cuda",
+                   help="torch device of the cuda backend; the CPU only "
+                        "when asked for")
 
 
 def _add_fault_plan_arg(p: argparse.ArgumentParser) -> None:
@@ -214,6 +259,19 @@ def _agree_on_resume(miner, err: str | None) -> str | None:
 
 def cmd_mine(args) -> int:
     cfg = _config_from(args)
+    if args.serve is not None and args.fused:
+        raise ConfigError(
+            "--serve needs the per-block miner (drop --fused): the "
+            "template feed rebinds Miner.payload_for at block "
+            "boundaries, a seam the fused device loop never consults")
+    if args.serve is not None and args.coordinator:
+        # The reference opens the door on rank 0 alone; its templates would
+        # then differ between the ranks, whose winner-selects combine
+        # searches of different headers.
+        raise ConfigError(
+            "--serve with --coordinator is not supported: the door's "
+            "templates would exist on rank 0 alone, and the ranks must "
+            "search the same header; serve from a single process")
     if args.fused and args.coordinator:
         raise ConfigError(
             "--fused with --coordinator needs a collective inside the "
@@ -272,18 +330,34 @@ def _mine(args, cfg, group, is_main: bool) -> int:
             call_with_retry(
                 lambda: save_chain(miner.node, args.checkpoint, cfg),
                 site="checkpoint.write")
+    service_state = service_summary = None
+    if args.serve is not None:
+        from .service import install_service
+        service_state = install_service(miner, port=args.serve)
+        print(f"serving chain on http://127.0.0.1:"
+              f"{service_state.server.port} "
+              f"(/submit /tx_status /chain /template)",
+              file=sys.stderr, flush=True)
     t0 = time.perf_counter()
-    if args.fused:
-        # The fused loop appends whole device spans: save at span
-        # boundaries (every span is at least one block of progress).
-        miner.mine_chain(remaining, on_progress=save)
-    else:
-        on_block = None
-        if save is not None:
-            def on_block(rec):
-                if rec.height % args.checkpoint_every == 0:
-                    save(rec.height)
-        miner.mine_chain(remaining, on_block=on_block)
+    try:
+        if args.fused:
+            # The fused loop appends whole device spans: save at span
+            # boundaries (every span is at least one block of progress).
+            miner.mine_chain(remaining, on_progress=save)
+        else:
+            on_block = None
+            if save is not None:
+                def on_block(rec):
+                    if rec.height % args.checkpoint_every == 0:
+                        save(rec.height)
+            miner.mine_chain(remaining, on_block=on_block)
+    finally:
+        if service_state is not None:
+            # Stats before teardown, and the door closes on every exit
+            # path: a crashed mine leaves no socket serving a dead miner.
+            from .service import uninstall_service
+            service_summary = service_state.stats()
+            uninstall_service(service_state)
     wall = time.perf_counter() - t0
     if not is_main:      # the other ranks mine but stay silent
         return 0
@@ -313,6 +387,8 @@ def _mine(args, cfg, group, is_main: bool) -> int:
                        backend=backend.name,
                        kernel=getattr(active, "effective_kernel", None),
                        rung=getattr(backend, "rung", None))
+    if service_summary is not None:
+        summary["service"] = service_summary
     degradations = getattr(backend, "degradations", [])
     if degradations:
         # Converged after stepping down: rc 0, but loudly. The run
@@ -324,6 +400,45 @@ def _mine(args, cfg, group, is_main: bool) -> int:
               f"after repeated dispatch failure; run converged anyway",
               file=sys.stderr)
     print(json.dumps(summary, sort_keys=True))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Mines a chain while serving the blockserve front door: submit,
+    tx_status, chain and template over HTTP. The form of ``mine --serve``
+    with the door's knobs; exits when the chain reaches --blocks."""
+    from .models.miner import Miner
+    from .service import (Mempool, TemplateFeed, install_service,
+                          uninstall_service)
+
+    cfg = _config_from(args)
+    miner = Miner(cfg)
+    mempool = Mempool(cap=args.mempool_cap)          # None -> env default
+    feed = TemplateFeed(mempool, cfg, max_txs=args.template_txs)
+    state = install_service(miner, port=args.port, host=args.host,
+                            mempool=mempool, feed=feed,
+                            deadline_s=args.deadline)
+    print(json.dumps({
+        "event": "service_started",
+        "url": f"http://{args.host}:{state.server.port}",
+        "endpoints": ["/submit", "/tx_status", "/chain", "/template",
+                      "/metrics", "/healthz", "/events"]},
+        sort_keys=True), file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    try:
+        miner.mine_chain(cfg.n_blocks)
+    finally:
+        stats = state.stats()
+        uninstall_service(state)
+    print(json.dumps({
+        "event": "chain_served",
+        "height": miner.node.height,
+        "tip_hash": miner.node.tip_hash.hex(),
+        "wall_s": round(time.perf_counter() - t0, 3),
+        "backend": miner.backend.name,
+        "rung": getattr(miner.backend, "rung", None),
+        "service": stats,
+    }, sort_keys=True))
     return 0
 
 
@@ -626,27 +741,7 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_mine = sub.add_parser("mine", help="mine a chain")
-    p_mine.add_argument("--preset", choices=sorted(PRESETS),
-                        help="named config (overrides the other flags "
-                             "except --device)")
-    p_mine.add_argument("--difficulty", type=int, default=16,
-                        help="leading-zero bits (default 16)")
-    p_mine.add_argument("--blocks", type=int, default=10)
-    p_mine.add_argument("--miners", type=int, default=1,
-                        help="miners that split each round: C++ ranks of "
-                             "the cpu backend, logical miners of the cuda "
-                             "backend in this process")
-    p_mine.add_argument("--backend", choices=BACKENDS, default="cuda")
-    p_mine.add_argument("--kernel", choices=KERNELS, default="auto",
-                        help="sweep kernel of the cuda backend: the CUDA "
-                             "kernel, the plain PyTorch version, or auto "
-                             "(by device)")
-    p_mine.add_argument("--batch-pow2", type=_batch_pow2_arg, default=20,
-                        help="log2 nonces per sweep round, or 'auto' to "
-                             "track the difficulty (clamped to [13, 24])")
-    p_mine.add_argument("--device", choices=DEVICES, default="cuda",
-                        help="torch device of the cuda backend; the CPU "
-                             "only when asked for")
+    _add_config_args(p_mine)
     p_mine.add_argument("--fused", action="store_true",
                         help="mine with the fused k-block loop on the "
                              "device (one host call per --blocks-per-call)")
@@ -677,6 +772,11 @@ def main(argv: list[str] | None = None) -> int:
                         help="multi-process launch: world size")
     p_mine.add_argument("--process-id", type=int, default=None,
                         help="multi-process launch: this process's rank")
+    p_mine.add_argument("--serve", metavar="PORT", type=int, default=None,
+                        help="open the blockserve front door on PORT "
+                             "(0 = ephemeral) while mining: /submit "
+                             "/tx_status /chain /template; not with "
+                             "--fused")
     p_mine.set_defaults(fn=cmd_mine)
 
     p_verify = sub.add_parser("verify", help="validate a saved chain file")
@@ -788,6 +888,30 @@ def main(argv: list[str] | None = None) -> int:
     _add_metrics_dump_arg(p_sim)
     p_sim.set_defaults(fn=cmd_sim)
 
+    p_serve = sub.add_parser(
+        "serve", help="mine while serving the blockserve HTTP front door "
+                      "(submit/tx_status/chain/template)")
+    _add_config_args(p_serve)
+    p_serve.add_argument("--port", type=int, default=0,
+                         help="door port (0 = ephemeral, announced on "
+                              "stderr)")
+    p_serve.add_argument("--host", default="127.0.0.1")
+    p_serve.add_argument("--deadline", type=float, default=None,
+                         metavar="SECONDS",
+                         help="per-request deadline (default "
+                              "MPIBT_SERVICE_DEADLINE, 5s): expired work "
+                              "is dropped before it reaches the miner")
+    p_serve.add_argument("--mempool-cap", type=int, default=None,
+                         metavar="N",
+                         help="bounded mempool capacity (default "
+                              "MPIBT_MEMPOOL_CAP, 512)")
+    p_serve.add_argument("--template-txs", type=int, default=None,
+                         metavar="N",
+                         help="max txs folded into one block template "
+                              "(default MPIBT_TEMPLATE_TXS, 16)")
+    _add_metrics_dump_arg(p_serve)
+    p_serve.set_defaults(fn=cmd_serve)
+
     p_info = sub.add_parser("info", help="torch, CUDA and card facts")
     p_info.set_defaults(fn=cmd_info)
 
@@ -803,6 +927,27 @@ def main(argv: list[str] | None = None) -> int:
         # The environment arms only the subcommand that takes the flag.
         fault_arg = os.environ.get("MPIBT_FAULT_PLAN") or None
     plan_armed = False
+    metrics_port = getattr(args, "serve_metrics", None)
+    if metrics_port is None and hasattr(args, "serve_metrics"):
+        # The environment arms only the subcommands that take the flag.
+        from .telemetry.events import env_number
+        metrics_port = env_number("MPIBT_METRICS_PORT", None, cast=int,
+                                  minimum=0)
+    metrics_server = None
+    if metrics_port is not None:
+        from .perfwatch.server import MetricsServer
+        metrics_server = MetricsServer(port=metrics_port)
+        try:
+            port = metrics_server.start()
+        except (OSError, OverflowError) as e:
+            # A taken (or out-of-range) port must not kill the run it was
+            # meant to observe.
+            print(f"serve-metrics failed: {e}", file=sys.stderr)
+            metrics_server = None
+        else:
+            print(f"serving metrics on http://127.0.0.1:{port} "
+                  f"(/metrics /healthz /events)", file=sys.stderr,
+                  flush=True)
     try:
         if fault_arg:
             from .resilience import injection
@@ -858,6 +1003,9 @@ def main(argv: list[str] | None = None) -> int:
                 dump_metrics(args.metrics_dump)
             except OSError as e:
                 print(f"metrics-dump failed: {e}", file=sys.stderr)
+        # The endpoint releases its port on every exit path.
+        if metrics_server is not None:
+            metrics_server.close()
 
 
 if __name__ == "__main__":

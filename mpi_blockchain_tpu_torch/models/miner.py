@@ -27,11 +27,19 @@ append of block N overlap the sweep for block N + 1. The wait for a
 consumed sweep is bounded by ``MPIBT_DISPATCH_TIMEOUT``, as in the
 reference: a sweep wedged on the card fails the run loudly.
 
-Each appended block sets the ``miner_heartbeat`` gauge to the height.
-Both drivers carry the reference's spans: ``miner.block`` around a block,
+Both drivers keep the reference's telemetry at the reference's points:
+``mining_rounds_total`` and ``hashes_tried_total`` per consumed sweep,
+the ``miner_heartbeat`` gauge stamped after every sweep and every append
+(so a long block does not read as a stalled miner), and per block
+``blocks_mined_total`` and the ``block_latency_ms`` histogram; the
+pipelined driver counts ``speculative_discards_total{reason}``. Both
+carry the reference's spans: ``miner.block`` around a block,
 ``miner.sweep`` around each search (in the pipelined driver, around the
-consume of a dispatch), ``miner.append`` around the C++ append. The
-reference's block tracing and pipeline profiler are not ported yet.
+consume of a dispatch), ``miner.append`` around the C++ append. Two
+seams are the reference's: ``payload_for`` (the template feed) and
+``_block_mined`` (runs after every append; the serving front door marks
+transactions included there). The reference's block tracing, pipeline
+profiler and the elastic ``_begin_block`` seam are not ported yet.
 """
 from __future__ import annotations
 
@@ -47,7 +55,7 @@ from typing import Callable
 from .. import core
 from ..backend import MinerBackend, backend_from_config
 from ..config import MAX_EXTRA_NONCE, MinerConfig, extend_payload
-from ..telemetry import heartbeat
+from ..telemetry import counter, heartbeat, histogram
 from ..telemetry.events import emit_event, env_number
 from ..telemetry.spans import span
 
@@ -154,22 +162,30 @@ class Miner:
 
     def payload_for(self, height: int) -> bytes:
         """The payload the candidate at ``height`` embeds. Both drivers
-        route every payload through this one hook; the pipelined driver
+        route every payload through this one hook, so a template service
+        can bind a live template per instance; the pipelined driver
         re-validates a speculative candidate against a fresh read at the
-        next block boundary."""
+        next block boundary, so a template rebuilt between blocks turns
+        the stale speculation into a ``restripe`` discard."""
         return self.config.payload(height)
+
+    def _block_mined(self, rec: BlockRecord) -> None:
+        """Runs right after a block's append, in both drivers."""
 
     # ---- the sequential oracle --------------------------------------------
 
-    def mine_block(self) -> BlockRecord:
-        """Mines and appends exactly one block on the current tip.
+    def mine_block(self, data: bytes | None = None) -> BlockRecord:
+        """Mines and appends exactly one block on the current tip, with
+        ``data`` as its payload (by default ``payload_for``).
 
         If the full 2^32 nonce space holds no qualifier, rolls over to a
         fresh space via the shared extra-nonce rule
         (``config.extend_payload``).
         """
         height = self.node.height + 1
-        data = self.payload_for(height)
+        if data is None:
+            data = self.payload_for(height)
+        backend = self.backend.name
         t0 = time.perf_counter()
         tried = 0
         with span("miner.block", height=height):
@@ -186,6 +202,7 @@ class Miner:
                         res = self.backend.search(
                             cand, self.config.difficulty_bits,
                             start_nonce=w_start, max_count=w_end - w_start)
+                        self._count_sweep(backend, res.hashes_tried)
                         tried += res.hashes_tried
                         if res.nonce is not None:
                             break
@@ -210,15 +227,36 @@ class Miner:
         rec = BlockRecord(height=height, nonce=res.nonce,
                           hash=res.hash.hex(), wall_ms=wall_ms,
                           hashes_tried=res.hashes_tried)
-        self._finalize_block(rec)
+        self._finalize_block(rec, backend)
         return rec
 
-    def _finalize_block(self, rec: BlockRecord) -> None:
-        """Post-append accounting shared by both drivers."""
-        self.records.append(rec)
+    def _count_sweep(self, backend: str, hashes_tried: int) -> None:
+        """Per consumed sweep, shared by both drivers: the round and hash
+        counters, and a heartbeat stamp, so that a backend wedged inside
+        a long block stalls the ``/healthz`` watchdog."""
+        counter("mining_rounds_total", help="backend sweep rounds issued",
+                backend=backend).inc()
+        counter("hashes_tried_total",
+                help="nonces evaluated across all sweeps",
+                backend=backend).inc(hashes_tried)
         heartbeat("miner_heartbeat").set(self.node.height)
+
+    def _finalize_block(self, rec: BlockRecord, backend: str) -> None:
+        """Post-append accounting shared by both drivers: counters,
+        heartbeat, latency histogram, the records list, the block_mined
+        log line and the ``_block_mined`` hook. ``backend`` is the label
+        taken when the block's sweeps were issued (the ladder may have
+        stepped down since)."""
+        counter("blocks_mined_total", help="blocks mined and appended",
+                backend=backend).inc()
+        heartbeat("miner_heartbeat").set(self.node.height)
+        histogram("block_latency_ms",
+                  help="wall-clock per mined block (winner latency, ms)",
+                  backend=backend).observe(rec.wall_ms)
+        self.records.append(rec)
         self._log({"event": "block_mined", "backend": self.backend.name,
                    **dataclasses.asdict(rec)})
+        self._block_mined(rec)
 
     def mine_chain(self, n_blocks: int | None = None,
                    on_block: Callable[[BlockRecord], None] | None = None
@@ -275,12 +313,17 @@ class Miner:
                     f"hung") from None
 
     @staticmethod
-    def _discard_speculative(pending) -> None:
-        """Discards every still-queued speculative dispatch: a winner (or
-        a changed window set, or an error) falsified the assumption they
-        were issued under."""
+    def _discard_speculative(pending, reason: str) -> None:
+        """Discards every still-queued speculative dispatch, counted by
+        ``reason``: a ``winner``, a ``restripe`` (the block boundary's
+        template or window set changed) or an ``error`` falsified the
+        assumption they were issued under."""
         while pending:
             d = pending.popleft()
+            counter("speculative_discards_total",
+                    help="speculative pipeline dispatches discarded "
+                         "before consumption, by reason",
+                    reason=reason).inc()
             if not d.future.cancel():
                 d.future.add_done_callback(_drain_discarded)
 
@@ -313,26 +356,27 @@ class Miner:
     def _mine_chain_pipelined(self, n: int, on_block) -> list[BlockRecord]:
         """The double-buffered chain driver: at most ``PIPELINE_DEPTH``
         sweeps in flight, consumed strictly in issue order."""
+        backend = self.backend.name
         records: list[BlockRecord] = []
         pending: collections.deque[_SweepDispatch] = collections.deque()
         t_prev = time.perf_counter()
         try:
             while len(records) < n:
                 rec, pending = self._pipeline_block(n - len(records),
-                                                    pending)
+                                                    pending, backend)
                 now = time.perf_counter()
                 rec = dataclasses.replace(rec, wall_ms=(now - t_prev) * 1e3)
                 t_prev = now
-                self._finalize_block(rec)
+                self._finalize_block(rec, backend)
                 records.append(rec)
                 if on_block is not None:
                     on_block(rec)
         except BaseException:
-            self._discard_speculative(pending)
+            self._discard_speculative(pending, "error")
             raise
         return records
 
-    def _pipeline_block(self, blocks_left: int, pending):
+    def _pipeline_block(self, blocks_left: int, pending, backend: str):
         """Mines ONE block through the pipeline; returns ``(record,
         pending)`` where ``pending`` holds the speculative first sweep of
         the next block, issued from this winner's digest before the
@@ -341,12 +385,12 @@ class Miner:
         data = self.payload_for(height)
         windows = _WindowSet(self.search_windows())
         if windows.get(0) is None:
-            self._discard_speculative(pending)
+            self._discard_speculative(pending, "error")
             raise RuntimeError("search_windows yielded no nonce windows")
         cands: dict[int, bytes] = {}
         if pending and not self._speculation_valid(pending, windows,
                                                    cands, data):
-            self._discard_speculative(pending)
+            self._discard_speculative(pending, "restripe")
 
         # The sweep cursor: the (template, window) the next issued dispatch
         # covers. None = blocked at a template boundary that a 1-window
@@ -373,6 +417,7 @@ class Miner:
                     cursor = advance(e, w)
                 d = pending.popleft()
                 r = self._consume(d)
+                self._count_sweep(backend, r.hashes_tried)
                 tried += r.hashes_tried
                 if r.nonce is not None:
                     res, win_d = r, d
@@ -384,7 +429,7 @@ class Miner:
                                "height": height,
                                "extra_nonce": d.template + 1})
                     if d.template >= MAX_EXTRA_NONCE:
-                        self._discard_speculative(pending)
+                        self._discard_speculative(pending, "error")
                         raise RuntimeError(
                             f"{MAX_EXTRA_NONCE} consecutive empty nonce "
                             f"spaces at height {height} — difficulty "
@@ -396,7 +441,7 @@ class Miner:
                         cursor = (d.template + 1, 0)
             res = dataclasses.replace(res, hashes_tried=tried)
             # A winner falsifies every queued no-winner speculation.
-            self._discard_speculative(pending)
+            self._discard_speculative(pending, "winner")
             if blocks_left > 1:
                 # Issue the next block's first sweep from the winner's
                 # digest, the prev_hash the C++ append is about to
@@ -410,7 +455,7 @@ class Miner:
                 accepted = self.node.submit(
                     core.set_nonce(win_d.cand, res.nonce))
         if not accepted:
-            self._discard_speculative(pending)
+            self._discard_speculative(pending, "error")
             raise RuntimeError(f"backend returned invalid block at {height}")
         rec = BlockRecord(height=height, nonce=res.nonce,
                           hash=res.hash.hex(), wall_ms=0.0,
@@ -427,3 +472,7 @@ class Miner:
 
     def hashes_per_sec(self) -> float:
         return self.total_hashes() / max(self.total_wall_s(), 1e-9)
+
+    def chain_hashes(self) -> list[str]:
+        return [self.node.block_hash(i).hex()
+                for i in range(self.node.height + 1)]

@@ -9,8 +9,9 @@ The port's copy of the reference's ``resilience`` package:
   ``mine --fault-plan PATH|seed:N`` (or ``MPIBT_FAULT_PLAN``), so a failure
   replays exactly.
 * **injection** -- the process-global arming point. Hooks in the CUDA and
-  CPU backends, the native-library load (``core/build.py``) and checkpoint
-  I/O (``utils/checkpoint.py``) call ``injection.check(site)``.
+  CPU backends, the native-library load (``core/build.py``), checkpoint
+  I/O (``utils/checkpoint.py``), the simulation and the front door
+  (``service/frontdoor.py``) call ``injection.check(site)``.
 * **policy** -- capped exponential backoff with deterministic jitter,
   per-layer budgets, and ``RetryExhausted`` as the one loud give-up signal
   (CLI rc 2).

@@ -25,9 +25,9 @@ injection counters reset at arm time, so a faulted run replays exactly.
 the reference's plan up to that one name. The port hooks
 ``backend.cuda.dispatch``, ``backend.cpu.search``, ``sim.deliver``,
 ``native.load``, ``checkpoint.write``, ``checkpoint.read``,
-``distributed.init`` and ``sim.churn``. The other sites belong to modules
-that are not ported yet (the elastic mesh, the serving front door): a
-plan may name them, and they never fire.
+``distributed.init``, ``sim.churn``, ``service.submit`` and
+``service.rebuild``. The other two sites belong to the elastic mesh, which
+is not ported yet: a plan may name them, and they never fire.
 """
 from __future__ import annotations
 
@@ -57,8 +57,19 @@ SITES = (
     #                           raise/hang crash the step
     "parallel.collective",    # not ported: the elastic mesh
     "mesh.rank_death",        # not ported: the elastic mesh
-    "service.submit",         # not ported: the serving front door
-    "service.rebuild",        # not ported: the serving front door
+    "service.submit",         # service/frontdoor.ServiceState.submit,
+    #                           per admission attempt: raise/hang retry
+    #                           under the service budget and shed typed
+    #                           on exhaustion; corrupt rejects the tx
+    #                           before the mempool; partial admits it
+    #                           but loses the receipt (tx_status finds it)
+    "service.rebuild",        # service/frontdoor.TemplateFeed.rebuild,
+    #                           per rebuild: raise/hang retry, and on
+    #                           exhaustion the previous template serves
+    #                           on; corrupt damages the template (the
+    #                           block boundary discards it); partial
+    #                           embeds only a prefix (the rest stays
+    #                           pending)
 )
 
 KINDS = ("raise", "hang", "corrupt", "partial")

@@ -10,9 +10,9 @@ deterministic jitter, per-layer budgets, one loud give-up signal.
   never retried: none of them heals with backoff, and retrying would bury
   the CLI's clean error.
 
-The per-site table keeps the reference's entries for layers the port has
-not ported yet (the mesh rebuild, the front door), so ``policy_for`` gives
-the reference's budget for every site name. ``call_with_retry`` is the one
+The per-site table keeps the reference's entries, the mesh rebuild's
+too, which the port has not ported yet, so ``policy_for`` gives the
+reference's budget for every site name. ``call_with_retry`` is the one
 place dispatch, distributed-init and checkpoint I/O exceptions are caught
 and retried.
 """

@@ -7,7 +7,8 @@ registry (``registry``), host spans filed as ``span_seconds``
 (``spans``), the event stream (``events``), the simulation's Lamport-clock
 causal logs (``causal``), the crash dump of all of these on an abnormal
 exit (``flight_recorder``, ``--flight-recorder`` on mine/sim/bench), a
-progress heartbeat gauge and a Prometheus dump. The profiler capture and
+progress heartbeat gauge (``heartbeat_snapshot`` is what ``/healthz`` and
+the front door's accept gate read) and a Prometheus dump. The profiler capture and
 the rest of the observability wait for a later slice of the port. All of
 it is host-side and standard library only.
 """
@@ -18,23 +19,30 @@ import pathlib
 from .causal import (CausalLog, LamportClock,  # noqa: F401
                      dump_causal_logs, load_causal_dump)
 from .events import clear_events, emit_event, recent_events  # noqa: F401
-from .registry import (Counter, Gauge, Histogram,  # noqa: F401
-                       MetricError, Registry, default_registry, reset,
-                       set_telemetry_disabled, telemetry_disabled)
+from .registry import (NULL_METRIC, Counter, Gauge,  # noqa: F401
+                       Histogram, MetricError, Registry, default_registry,
+                       reset, set_telemetry_disabled, telemetry_disabled)
 
 
 def counter(name: str, help: str = "", **labels) -> Counter:
-    """Get-or-create a counter on the default registry."""
+    """Get-or-create a counter on the default registry (the null metric
+    while the kill switch is on)."""
+    if telemetry_disabled():
+        return NULL_METRIC
     return default_registry().counter(name, help=help, **labels)
 
 
 def gauge(name: str, help: str = "", **labels) -> Gauge:
     """Get-or-create a gauge on the default registry."""
+    if telemetry_disabled():
+        return NULL_METRIC
     return default_registry().gauge(name, help=help, **labels)
 
 
 def histogram(name: str, help: str = "", **labels) -> Histogram:
     """Get-or-create a histogram on the default registry."""
+    if telemetry_disabled():
+        return NULL_METRIC
     return default_registry().histogram(name, help=help, **labels)
 
 
@@ -53,9 +61,27 @@ def heartbeat(name: str) -> Gauge:
     if not name.endswith("_heartbeat"):
         raise MetricError(f"heartbeat gauge {name!r} must end "
                           f"'_heartbeat'")
+    if telemetry_disabled():
+        return NULL_METRIC
     return default_registry().gauge(
         name, help="progress heartbeat (value: progress marker; "
                    "last_set age: staleness)")
+
+
+def heartbeat_snapshot(registry: Registry | None = None) -> dict:
+    """Every ``*_heartbeat`` gauge as {``name{k=v}...``: {"value",
+    "age_s"}}: the one spelling of a heartbeat that ``/healthz`` and the
+    front door's accept gate read."""
+    reg = registry if registry is not None else default_registry()
+    beats: dict[str, dict] = {}
+    for m in reg.metrics():
+        if m.kind != "gauge" or not m.name.endswith("_heartbeat"):
+            continue
+        age = m.age_s()
+        label = m.name + "".join(f"{{{k}={v}}}" for k, v in m.labels)
+        beats[label] = {"value": m.value,
+                        "age_s": None if age is None else round(age, 3)}
+    return beats
 
 
 def render_prometheus() -> str:

@@ -6,6 +6,8 @@ line at INFO to the ``mpi_blockchain_tpu_torch.events`` logger, which
 prints to stderr. Events are also kept in a bounded in-process ring so
 tests and the smoke gates can inspect what a run emitted without scraping
 log output; ``MPIBT_EVENT_BUFFER`` sets the ring's size (default 2048).
+Each ringed record is paired with a process-lifetime sequence number, the
+cursor of perfwatch's ``/events?since=SEQ``.
 
 The port's copy of the reference's ``telemetry/events.py``. The reference
 stamps each record with the block it belongs to (blocktrace); blocktrace
@@ -45,8 +47,11 @@ def env_number(name: str, default, cast=int, minimum=1):
 
 EVENT_RING_SIZE = env_number("MPIBT_EVENT_BUFFER", _DEFAULT_RING_SIZE)
 
+# (seq, record) pairs. The seq never resets, not even in clear_events, so
+# a poller's cursor stays valid; the records themselves carry no seq.
 _ring: collections.deque = collections.deque(maxlen=EVENT_RING_SIZE)
 _lock = threading.Lock()
+_seq = 0
 
 
 def get_logger() -> logging.Logger:
@@ -64,9 +69,11 @@ def get_logger() -> logging.Logger:
 
 def emit_event(record: dict) -> None:
     """Emits one structured event as a JSON line (INFO) and rings it."""
+    global _seq
     record = dict(record)
     with _lock:
-        _ring.append(dict(record))
+        _seq += 1
+        _ring.append((_seq, dict(record)))
     get_logger().info(json.dumps(record, sort_keys=True, default=str))
 
 
@@ -74,16 +81,35 @@ def recent_events(n: int | None = None,
                   event: str | None = None) -> list[dict]:
     """The last n ringed events (all by default), newest last; ``event``
     filters on the record's "event" field."""
+    return [r for _, r in recent_with_seq(n=n, event=event)]
+
+
+def recent_with_seq(n: int | None = None, since: int | None = None,
+                    event: str | None = None) -> list[tuple[int, dict]]:
+    """Like ``recent_events``, each record paired with its seq; ``since``
+    keeps only records with ``seq > since``. ``n`` bounds the reply: the
+    newest n without a cursor, the oldest n with one, because a paging
+    poller advances its cursor past what it received (newest-first would
+    skip the middle of a burst for good). Records older than the ring's
+    bound are gone either way."""
     with _lock:
         out = list(_ring)
+    if since is not None:
+        out = [(s, r) for s, r in out if s > since]
     if event is not None:
-        out = [r for r in out if r.get("event") == event]
+        out = [(s, r) for s, r in out if r.get("event") == event]
     if n is not None:
-        out = out[-n:]
+        out = out[:n] if since is not None else out[-n:]
     return out
 
 
+def latest_seq() -> int:
+    """The seq of the newest emitted event (0 before any)."""
+    with _lock:
+        return _seq
+
+
 def clear_events() -> None:
-    """Empties the ring."""
+    """Empties the ring; the seq keeps counting."""
     with _lock:
         _ring.clear()

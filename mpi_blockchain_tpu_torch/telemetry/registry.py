@@ -29,8 +29,10 @@ LabelItems = tuple[tuple[str, str], ...]
 
 # ---- the kill switch --------------------------------------------------------
 # MPIBT_TELEMETRY_OFF (or ``set_telemetry_disabled(True)``) turns every span
-# into a bare yield: no clock read, no stack push, nothing filed. It exists
-# to price the instrumentation itself, as in the reference.
+# into a bare yield (no clock read, no stack push, nothing filed) and makes
+# the helpers ``telemetry.counter/gauge/histogram/heartbeat`` hand out the
+# shared null metric. It exists to price the instrumentation itself, as in
+# the reference; direct Registry calls stay live.
 
 _telemetry_off = bool(os.environ.get("MPIBT_TELEMETRY_OFF"))
 
@@ -270,6 +272,45 @@ class Histogram(_Metric):
     def to_dict(self) -> dict:
         return {"kind": self.kind, "labels": dict(self.labels),
                 **self.snapshot()}
+
+
+class _NullMetric:
+    """The shared do-nothing metric the helpers hand out while telemetry
+    is off: accepts every mutation of every kind, records nothing."""
+
+    kind = "null"
+    name = "null"
+    labels: LabelItems = ()
+    value = 0
+    count = 0
+    sum = 0.0
+
+    def inc(self, amount: float = 1) -> None:
+        pass
+
+    def dec(self, amount: float = 1) -> None:
+        pass
+
+    def set(self, value: float) -> None:
+        pass
+
+    def observe(self, value: float) -> None:
+        pass
+
+    def age_s(self) -> None:
+        return None
+
+    def quantile(self, q: float) -> None:
+        return None
+
+    def snapshot(self) -> dict:
+        return {}
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, "labels": {}, "value": 0}
+
+
+NULL_METRIC = _NullMetric()
 
 
 # Prometheus TYPE keyword per metric kind (histograms render as summaries:

@@ -1,0 +1,99 @@
+"""Times the d24/n1000 pipelined ``Miner`` of two checkouts of the port in
+turns on one NVIDIA GPU: what a change to the per-block path costs.
+
+    python -m mpi_blockchain_tpu_torch.tools.tree_turns PARENT_DIR CHANGE_DIR \\
+        [--rounds 2]
+
+Each round runs the two trees in the order A, B, B, A (A the first tree),
+each run in a process of its own started in that tree's directory, so
+each imports its own package and builds its own kernel. A run builds, mines
+a short d20/n10 chain to warm the card and the process, resets the
+telemetry, then mines d24/n1000 at 2^24 behind ``ResilientBackend`` with
+``chip_smoke.mine_timed`` (CUDA events around every sweep launch) and
+prints its wall, sweeps, host time a block (wall minus sweeps, over the
+blocks) and the spans a block (``chip_smoke.span_ms_per_block``). Both
+trees must end at the same tip. The last line is one JSON object with
+every run, the medians per tree, and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+# Runs inside each tree: its own chip_smoke helpers and its own package.
+_RUN = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke
+from mpi_blockchain_tpu_torch import telemetry
+from mpi_blockchain_tpu_torch.config import MinerConfig
+from mpi_blockchain_tpu_torch.core.build import ensure_built
+from mpi_blockchain_tpu_torch.models.miner import Miner
+from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+sha256_cuda.build()
+ensure_built()
+Miner(MinerConfig(difficulty_bits=20, n_blocks=10, batch_pow2=20,
+                  backend="cuda", kernel="cuda", device="cuda"),
+      pipeline=True).mine_chain()
+telemetry.reset()
+run = chip_smoke.mine_timed(Miner(MinerConfig(
+    difficulty_bits=24, n_blocks=1000, batch_pow2=24, backend="cuda",
+    kernel="cuda", device="cuda"), pipeline=True))
+run["host_ms_per_block"] = chip_smoke.host_ms_per_block(run, 1000)
+run["span_ms_per_block"] = chip_smoke.span_ms_per_block(1000)
+print(json.dumps(run))
+"""
+
+
+def run_tree(tree: pathlib.Path) -> dict:
+    """One timed run in ``tree``'s own process."""
+    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tree,
+                          capture_output=True, text=True, check=True,
+                          timeout=600)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m mpi_blockchain_tpu_torch.tools.tree_turns")
+    parser.add_argument("trees", nargs=2, type=pathlib.Path,
+                        help="two checkouts of the repo (A, then B)")
+    parser.add_argument("--rounds", type=int, default=2)
+    args = parser.parse_args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    a, b = (t.resolve() for t in args.trees)
+    runs: dict[str, list] = {str(a): [], str(b): []}
+    for r in range(args.rounds):
+        for tree in (a, b, b, a):
+            run = run_tree(tree)
+            runs[str(tree)].append(run)
+            print(f"round {r} {tree.name}: wall {run['wall_s']:.6f} s, "
+                  f"sweeps {run['kernel_s']:.6f} s, host "
+                  f"{run['host_ms_per_block']:.4f} ms a block, spans "
+                  f"{ {k: round(v, 6) for k, v in run['span_ms_per_block'].items()} }",
+                  flush=True)
+    tips = {run["tip_hash"] for rs in runs.values() for run in rs}
+    if len(tips) != 1:
+        print(f"tree_turns: FAIL: the runs end at {tips}", file=sys.stderr)
+        return 1
+    medians = {tree: {key: statistics.median(r[key] for r in rs)
+                      for key in ("wall_s", "kernel_s",
+                                  "host_ms_per_block")}
+               for tree, rs in runs.items()}
+    for tree, m in medians.items():
+        print(f"median {pathlib.Path(tree).name}: {m}", flush=True)
+    print(json.dumps({"card": card, "runs": runs, "medians": medians}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

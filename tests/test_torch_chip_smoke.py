@@ -250,3 +250,174 @@ def test_determinism_pin_is_the_cpp_sweeps(tmp_path):
         smoke_determinism
     got = smoke_determinism(tmp_path, device="cpu")
     assert got["sha256"] == chip_smoke.SIM_DETERMINISM_SHA256
+
+
+def test_phase_10_constants_are_the_serve_shapes():
+    from mpi_blockchain_tpu_torch.service import __main__ as serve_smoke
+    from mpi_blockchain_tpu_torch.service import frontdoor, mempool
+
+    args = dict(zip(chip_smoke.SERVE_ARGS[::2], chip_smoke.SERVE_ARGS[1::2]))
+    assert args == {"--difficulty": "24", "--batch-pow2": "24",
+                    "--blocks": "1000"}
+    assert chip_smoke.SERVE_LOAD == {"seed": 1337, "n": 2000, "workers": 4}
+    assert sorted(chip_smoke.SERVE_TURNS) == ["load", "load", "quiet",
+                                              "quiet"]
+    assert chip_smoke.SERVE_TURNS[0] == chip_smoke.SERVE_TURNS[-1]
+    # The default door knobs the full-width run takes.
+    assert (mempool.DEFAULT_CAP, frontdoor.DEFAULT_TEMPLATE_TXS,
+            frontdoor.DEFAULT_DEADLINE_S) == (512, 16, 5.0)
+    # The smoke's shape is the reference's.
+    assert (serve_smoke.SMOKE_SEED, serve_smoke.SMOKE_DIFFICULTY,
+            serve_smoke.SMOKE_BLOCKS, serve_smoke.SMOKE_CAP,
+            serve_smoke.SMOKE_TEMPLATE_TXS, serve_smoke.SMOKE_BATCH_A,
+            serve_smoke.SMOKE_BATCH_B, serve_smoke.SMOKE_DEADLINE_S) == \
+        (1337, 12, 6, 8, 4, 10, 16, 5.0)
+    assert chip_smoke.SERVE_PROBE_HEIGHTS == {"healthz": 5, "metrics": 10}
+    assert "--blocks" in chip_smoke.SERVE_METRICS_ARGS
+
+
+def test_checked_heights_come_from_the_seed():
+    hs = chip_smoke.checked_heights(1337, 1000)
+    assert hs == chip_smoke.checked_heights(1337, 1000)
+    assert len(set(hs)) == chip_smoke.SERVE_CHECKED_HEIGHTS
+    assert all(1 <= h <= 1000 for h in hs) and hs == sorted(hs)
+    assert chip_smoke.checked_heights(7, 3) != [] and \
+        max(chip_smoke.checked_heights(7, 3)) <= 3
+
+
+def test_lowest_winner_reads_the_chain_file():
+    from mpi_blockchain_tpu_torch.backend.cpu import CpuBackend
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+
+    miner = Miner(MinerConfig(difficulty_bits=10, n_blocks=3,
+                              backend="cpu"), backend=CpuBackend())
+    miner.mine_chain()
+    blob = miner.node.save()
+    for h, rec in enumerate(miner.records, start=1):
+        assert chip_smoke.lowest_winner(blob, h, 10) == (rec.nonce,
+                                                         rec.nonce)
+
+
+def test_serve_run_streams_the_load_and_records_every_payload():
+    """Phase 10 (b)'s run on the C++ sweep at a small size: the CLI's
+    ``serve`` on a thread, the load from this one; the recorded payloads
+    replay to the served tip through the sequential ``Miner``."""
+    from mpi_blockchain_tpu_torch import service
+    from mpi_blockchain_tpu_torch.backend.cpu import CpuBackend
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+    from mpi_blockchain_tpu_torch.service.frontdoor import TemplateFeed
+
+    real, install = TemplateFeed.payload_for, service.install_service
+    run = chip_smoke.serve_run(["--backend", "cpu", "--difficulty", "14",
+                                "--blocks", "24"],
+                               {"seed": 1337, "n": 40, "workers": 4})
+    assert TemplateFeed.payload_for is real
+    assert service.install_service is install
+    assert service.active_service() is None
+    summary, report = run["summary"], run["report"]
+    assert summary["event"] == "chain_served" and summary["height"] == 24
+    chip_smoke.check_load(report, run["state"], 40, "cpu")
+    assert sorted(run["payloads"]) == list(range(1, 25))
+    replay = Miner(MinerConfig(difficulty_bits=14, n_blocks=24,
+                               backend="cpu"), backend=CpuBackend(),
+                   pipeline=False)
+    replay.payload_for = lambda h: run["payloads"][h]
+    replay.mine_chain()
+    assert replay.node.tip_hash.hex() == summary["tip_hash"]
+    assert run["launches"] == 0 and run["step_launches"] == 0
+    assert set(run["discards"]) <= {"restripe", "winner", "error"}
+    assert set(run["span_s"]) == {"miner.sweep", "backend.cuda.dispatch"}
+    row = chip_smoke.serve_row(run, 24)
+    assert row["wall_s"] == summary["wall_s"]
+    assert row["load_wall_s"] == report["wall_s"]
+    assert row["included"] == summary["service"]["mempool"]["included_total"]
+    assert row["requests_per_sec"] == report["requests_per_sec"]
+    quiet = chip_smoke.serve_run(["--backend", "cpu", "--difficulty", "10",
+                                  "--blocks", "3"], None)
+    assert quiet["report"] is None
+    assert all(b"|" not in d for d in quiet["payloads"].values())
+    row = chip_smoke.serve_row(quiet, 3)
+    assert row["wall_s"] == quiet["summary"]["wall_s"] is not None
+    assert row["load_wall_s"] is None and row["discarded_share"] is None
+
+
+def test_probing_blocks_scrapes_the_metrics_server_mid_run():
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+
+    telemetry.reset()
+    real = Miner._block_mined
+    with chip_smoke.probing_blocks(chip_smoke.SERVE_PROBE_HEIGHTS) as got:
+        rc, summary = chip_smoke.run_cli(
+            ["mine", "--backend", "cpu", "--difficulty", "12", "--blocks",
+             "10", "--serve-metrics", "0"])
+    assert Miner._block_mined is real and rc == 0
+    code, body = got["healthz"]
+    health = json.loads(body)
+    assert (code, health["status"]) == (200, "ok")
+    assert health["heartbeats"]["miner_heartbeat"]["value"] == 5
+    prom = got["metrics"][1]
+    assert chip_smoke.metric_total(prom, "blocks_mined_total") == 10
+    assert chip_smoke.metric_total(prom, "hashes_tried_total") == \
+        summary["hashes_tried"]
+
+
+def test_discards_by_reason_reads_the_counter():
+    from mpi_blockchain_tpu_torch import telemetry
+
+    telemetry.reset()
+    assert chip_smoke.discards_by_reason() == {}
+    telemetry.counter("speculative_discards_total", reason="restripe").inc(3)
+    telemetry.counter("speculative_discards_total", reason="winner").inc()
+    assert chip_smoke.discards_by_reason() == {"restripe": 3, "winner": 1}
+
+
+def test_tree_turns_runs_only_helpers_every_tree_has():
+    """The tree-turns tool runs each checkout's own ``chip_smoke``
+    helpers; they are here, as they are in the earlier trees it compares
+    with."""
+    from mpi_blockchain_tpu_torch.tools import tree_turns
+
+    for name in ("mine_timed", "host_ms_per_block", "span_ms_per_block"):
+        assert f"chip_smoke.{name}(" in tree_turns._RUN
+        assert callable(getattr(chip_smoke, name))
+    compile(tree_turns._RUN, "tree_turns._RUN", "exec")
+
+
+def test_telemetry_us_per_block_prices_the_miners_calls():
+    from mpi_blockchain_tpu_torch import telemetry
+
+    telemetry.reset()
+    got = chip_smoke.telemetry_us_per_block(200)
+    assert set(got) == {"on", "off", "cost"}
+    assert got["on"] > 0 and got["off"] > 0
+    assert got["cost"] == got["on"] - got["off"]
+    assert not telemetry.telemetry_disabled()
+    # With the switch off nothing was counted; with it on, every call.
+    assert telemetry.default_registry().total("blocks_mined_total") == 400
+
+
+def test_served_cases_window_each_winner_of_a_chain():
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.backend.cpu import CpuBackend
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+
+    miner = Miner(MinerConfig(difficulty_bits=12, n_blocks=4,
+                              backend="cpu"), backend=CpuBackend())
+    miner.mine_chain()
+    blob = miner.node.save()
+    cases = chip_smoke.served_cases(blob, [1, 2, 3, 4], 12, half=1 << 10)
+    assert [c[0] for c in cases] == [blob[80 * h:80 * h + 80]
+                                     for h in (1, 2, 3, 4)]
+    for (header, d, start, n), rec in zip(cases, miner.records):
+        assert d == 12 and start <= rec.nonce < start + n
+        assert start == max(0, rec.nonce - (1 << 10))
+        # The chain's winner is the lowest from 0, so the lowest in its
+        # window is the winner itself.
+        assert core.cpu_search(header, start, n, d)[0] == rec.nonce
+    top = chip_smoke.served_cases(bytes(80) + bytes(76) + b"\xff" * 4,
+                                  [1], 8, half=16)
+    assert top[0][2] + top[0][3] == 1 << 32

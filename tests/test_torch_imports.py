@@ -33,6 +33,10 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
             found += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
                       for n in names if _forbidden(n)]
     assert len(_port_files()) > 10
+    scanned = {f.relative_to(PORT).parts[0] for f in _port_files()
+               if PORT in f.parents}
+    assert {"service", "perfwatch", "chainwatch", "telemetry", "models",
+            "sim", "resilience", "ops", "backend"} <= scanned
     assert found == []
 
 

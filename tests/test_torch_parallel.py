@@ -330,9 +330,9 @@ _DISCARD_RANK = textwrap.dedent("""
     discards = []
     real = Miner._discard_speculative
 
-    def counted(pending):
+    def counted(pending, reason):
         discards.append(sum(not d.future.done() for d in pending))
-        return real(pending)
+        return real(pending, reason)
     Miner._discard_speculative = staticmethod(counted)
     cfg = MinerConfig(difficulty_bits=11, n_blocks=4, batch_pow2=9,
                       device="cpu", n_miners=2)

@@ -1,0 +1,58 @@
+"""The front door on the card: a served d16 chain, pipelined through the
+CUDA sweep while a seeded load streams over HTTP, equals the sequential
+replay of the door's templates on the C++ sweep; the serve smoke passes on
+the card.
+
+Every test needs a CUDA device (``cuda`` marker) and skips without one.
+This file imports no jax, so it also runs on a machine with the card and
+without jax, skipping the root conftest (which imports jax); run it from
+the repository's root (it imports ``chip_smoke``'s helpers):
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_service_cuda.py
+"""
+import pytest
+import torch
+
+import chip_smoke
+from mpi_blockchain_tpu_torch import telemetry
+from mpi_blockchain_tpu_torch.ops import sha256_cuda
+from mpi_blockchain_tpu_torch.resilience import injection
+from mpi_blockchain_tpu_torch.service import __main__ as serve_smoke
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    injection.disarm()
+    telemetry.reset()
+    yield
+    injection.disarm()
+
+
+@pytest.mark.cuda
+def test_served_d16_chain_equals_the_cpp_replay():
+    _card()
+    run = chip_smoke.serve_run(["--difficulty", "16", "--blocks", "30",
+                                "--batch-pow2", "20"],
+                               {"seed": 1337, "n": 200, "workers": 4})
+    summary = run["summary"]
+    assert summary["height"] == 30 and summary["rung"] == "cuda:cuda"
+    assert run["launches"] > 0
+    chip_smoke.check_load(run["report"], run["state"], 200, "d16")
+    oracle = serve_smoke.replay_oracle(run["payloads"], 30, 16)
+    assert oracle.node.tip_hash.hex() == summary["tip_hash"]
+    assert summary["service"]["mempool"]["included_total"] > 0
+
+
+@pytest.mark.cuda
+def test_serve_smoke_passes_on_the_card():
+    _card()
+    sha256_cuda.launches = 0
+    got = serve_smoke.smoke(device="cuda")
+    assert got["ok"] and got["chain_identical"]
+    assert got["step_downs"] == ["cuda:torch"] and got["faults_fired"] == 3
+    assert sha256_cuda.launches > 0

@@ -136,6 +136,37 @@ then:
    with a fresh ``miner_heartbeat`` at block 5, and ``/metrics`` shows
    ``blocks_mined_total`` 10 and ``hashes_tried_total`` equal to the
    summary's ``hashes_tried`` at block 10.
+11. per-block tracing on the main path (``blocktrace``,
+   ``meshwatch.pipeline``, ``chainwatch``): (a) the d24/n1000/2^24
+   pipelined ``Miner`` at the pin, traced and with the telemetry off
+   (``MPIBT_TELEMETRY_OFF``'s kill switch) in turns (``TRACE_TURNS``):
+   walls and host ms a block, and tracing's cost a block pair by pair
+   (``tracing_cost``); for each traced run the ``pipeline`` object,
+   ``critical_path_report`` over its records, complete for every height
+   1..1000 with the gap under 5%, the union of its ``device`` segments
+   (taken from the card's timing events) against the sweeps' CUDA-event
+   sum (events recorded right around the library's call that launches
+   each sweep, ``timed_library_calls``; it may not exceed it), and
+   ``bubble_fraction`` against 1 - sweeps / wall (within 0.05); and the
+   host cost of the sweep's timing events a
+   launch (only a traced pipelined ``Miner`` asks for them) against the
+   plain event every other launch records (``event_cost_us``); (b)
+   ``mine --fused`` d24/n1000 at 100 blocks a call, traced: the pin, the
+   ``pipeline`` object, one host wait a call and no hidden sync, the
+   compile census with the k-block program built once, no ``nvcc`` build
+   on the warm cache (and the startup build's count: 1 from a cold
+   checkout); (c) ``mine --incident-dir`` at the d20/n10 pin with every
+   block evaluated: no incident, bundle or ``incidents_total`` without a
+   fault plan; with two consecutive injected ``backend.cuda.dispatch``
+   raises and ``MPIBT_CHAINWATCH_STORM_N=3`` exactly one ``event_storm``,
+   rc 0, the pin, one bundle holding every ``BUNDLE_KEYS`` key and a
+   ``memory`` section from ``torch.cuda.memory_stats`` with bytes in use
+   (the one-process form of the reference's ``chainwatch smoke``); (d)
+   ``measure_trace_overhead`` on the card (the round a 2^24 sweep) within
+   the reference's 3% bound, up to four reads as the reference's trace
+   smoke takes them (``OVERHEAD_ATTEMPTS``), after a null read with both
+   halves off (the estimator's zero), and ``measure_block_observe``
+   within its 300 us bound.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -296,6 +327,30 @@ SERVE_PROBE_HEIGHTS = {"healthz": 5, "metrics": 10}
 # (a), (b): the kernel against the plain version and the C++ sweep on the
 # served chains' own headers, over this many nonces each side of a winner.
 SERVE_WINDOW_HALF = 1 << 15
+# Phase 11: per-block tracing. (a) the d24/n1000 pipelined Miner traced
+# and with the telemetry off, in these turns (three rounds, so that the
+# tracing's cost a block stands out of the runs' spread); bubble_fraction
+# against 1 - sweeps / wall within this.
+TRACE_TURNS = ("traced", "off", "off", "traced") * 3
+BUBBLE_TOLERANCE = 0.05
+# (a) the host cost of the timing events a launch: timed launches and
+# their read-backs against launches with one plain event, this many a
+# turn.
+EVENT_COST_LAUNCHES = 2000
+# (c) the chainwatch run: the d20/n10 pin, every block evaluated, and the
+# fault plan of the reference's chainwatch smoke (two consecutive
+# injected dispatch raises, after the watchdog's first sample anchors).
+INCIDENT_ENV = {"MPIBT_CHAINWATCH_INTERVAL": "0",
+                "MPIBT_CHAINWATCH_STORM_N": "3",
+                "MPIBT_CHAINWATCH_STORM_WINDOW": "60"}
+INCIDENT_FAULT = {"site": "backend.cuda.dispatch", "kind": "raise",
+                  "call": 2, "times": 2}
+# (d) the overhead audits that may be taken until one is inside the bound,
+# with a pause after a miss: the reference's trace smoke (a real
+# regression cannot read under the bound; host weather can read over it).
+OVERHEAD_ATTEMPTS = ({}, {"seconds": 1.5, "reps": 5},
+                     {"seconds": 1.5, "reps": 5}, {"seconds": 2.0, "reps": 5})
+OVERHEAD_PAUSE_S = 5.0
 
 
 class SmokeFailure(Exception):
@@ -532,16 +587,59 @@ def phase_backend(rng, device):
         f"cpu_search")
 
 
-def mine_timed(miner) -> dict:
+# The library's entries that launch the sweep with ext in host memory,
+# the only ones the per-block Miner calls.
+SWEEP_ENTRIES = ("sha256d_sweep_launch", "sha256d_sweep_launch_timed")
+
+
+@contextlib.contextmanager
+def timed_library_calls(lib, events: list, new_event):
+    """Records a pair of events (``new_event()``) right before and right
+    after each call of ``lib``'s ``SWEEP_ENTRIES``, appending each pair
+    to ``events``. On a card that is idle when the host gets to a launch,
+    a pair around ``sha256_cuda.launch`` also times the wrapper's host
+    work before the kernel as busy (50 to 60 us a launch beside an NVIDIA
+    H100 80GB HBM3 at 700 W, more on a loaded host); around the library's
+    call it times the kernel and a few us of the call's own."""
+    saved = {name: getattr(lib, name) for name in SWEEP_ENTRIES}
+
+    def bracketed(fn):
+        def call(*args):
+            ev = (new_event(), new_event())
+            ev[0].record()
+            err = fn(*args)
+            ev[1].record()
+            events.append(ev)
+            return err
+        return call
+
+    for name, fn in saved.items():
+        setattr(lib, name, bracketed(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+
+
+def mine_timed(miner, bracket: str = "call",
+               sample_clocks: bool = True) -> dict:
     """Mines ``miner``'s chain with CUDA events around every sweep launch
     and its CUDA backend's searches counted (each starts with the
     backend's ``launch``, whether ``search`` or the resilient wrapper
     calls it); returns wall, sweep time, launches, searches and the card's
-    clocks during the run."""
+    clocks during the run (``sample_clocks``; else none). ``bracket``
+    "call" puts the events around ``sha256_cuda.launch``, "library"
+    around the library's call inside it (``timed_library_calls``). The
+    clock sampler's thread starts ``nvidia-smi`` four times a second;
+    where it holds the interpreter lock inside a bracket, the host's wait
+    for it is timed as the sweep's."""
     import torch
 
     from mpi_blockchain_tpu_torch.ops import sha256_cuda
 
+    if bracket not in ("call", "library"):
+        raise ValueError(f"bracket {bracket!r}")
     backend = getattr(miner.backend, "active_backend", miner.backend)
     searches, events = 0, []
     start, launch = backend.launch, sha256_cuda.launch
@@ -560,11 +658,18 @@ def mine_timed(miner) -> dict:
         events.append(ev)
 
     backend.launch = counted_start
-    sha256_cuda.launch = timed_launch
+    timing = contextlib.nullcontext()
+    if bracket == "call":
+        sha256_cuda.launch = timed_launch
+    else:
+        timing = timed_library_calls(
+            sha256_cuda.library(), events,
+            lambda: torch.cuda.Event(enable_timing=True))
     sha256_cuda.launches = 0
     try:
         torch.cuda.synchronize()
-        with ClockSampler() as clocks:
+        with timing, (ClockSampler() if sample_clocks
+                      else contextlib.nullcontext(None)) as clocks:
             t0 = time.perf_counter()
             miner.mine_chain()
             wall = time.perf_counter() - t0
@@ -575,7 +680,8 @@ def mine_timed(miner) -> dict:
     torch.cuda.synchronize()
     kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
     return {"wall_s": wall, "kernel_s": kernel_s, "launches": launches,
-            "searches": searches, "clocks": clocks.summary(),
+            "searches": searches,
+            "clocks": clocks.summary() if clocks is not None else {},
             "tip_hash": miner.node.tip_hash.hex()}
 
 
@@ -2403,6 +2509,385 @@ def phase_serve(device) -> dict:
     return out
 
 
+def check_device_union(union_s: float, event_sum_s: float,
+                       what: str) -> None:
+    """The device windows' union may not exceed the sweeps' CUDA-event
+    sum: a window stamped on the host's clock at the consume would count
+    the card's idle time as busy. The miner's events bracket the kernel
+    alone and ``mine_timed``'s the library's call around it, on one
+    stream, so each window is at most its sweep's event time."""
+    check(union_s <= event_sum_s,
+          f"{what}: device-segment union {union_s:.6f} s exceeds the "
+          f"sweeps' CUDA-event sum {event_sum_s:.6f} s")
+
+
+def check_bubble(bubble: float, event_sum_s: float, wall_s: float,
+                 what: str) -> float:
+    """``bubble_fraction`` agrees with 1 - the sweeps' CUDA-event sum /
+    wall within ``BUBBLE_TOLERANCE``; returns the latter."""
+    expected = 1 - event_sum_s / wall_s
+    check(abs(bubble - expected) <= BUBBLE_TOLERANCE,
+          f"{what}: bubble_fraction {bubble} against 1 - sweeps / wall "
+          f"{expected:.4f}")
+    return expected
+
+
+def check_critical_path(report: dict, blocks: int, what: str) -> float:
+    """Every height 1..blocks has a complete critical path with its gap
+    under ``COMPLETE_GAP_PCT``; returns the largest gap share."""
+    from mpi_blockchain_tpu_torch.blocktrace.critical_path import \
+        COMPLETE_GAP_PCT
+
+    check(report["heights"] == list(range(1, blocks + 1)),
+          f"{what}: critical path heights {report['heights'][:5]}... "
+          f"({len(report['heights'])}), not 1..{blocks}")
+    for h in report["heights"]:
+        b = report["blocks"][str(h)]
+        check(b["complete"] and b["gap_pct"] < COMPLETE_GAP_PCT,
+              f"{what}: block {h} incomplete: gap {b['gap_pct']}%, path "
+              f"{b['critical_path']}")
+    return max(report["blocks"][str(h)]["gap_pct"]
+               for h in report["heights"])
+
+
+def check_no_incident(incident_dir: str, events: list, registry,
+                      what: str) -> None:
+    """A clean run raises no incident: no bundle, no ``incident`` event,
+    no ``incidents_total``."""
+    bundles = sorted(pathlib.Path(incident_dir).glob("incident_*.json"))
+    check(not bundles and not events
+          and registry.total("incidents_total") == 0,
+          f"{what}: a clean run raised incidents: bundles "
+          f"{[b.name for b in bundles]}, events {events}")
+
+
+def event_cost_us(device, n: int = EVENT_COST_LAUNCHES) -> dict:
+    """Host us of ``sha256_cuda.sweep_launch`` with its one plain event
+    and inside ``timed_launches`` with a timing pair from the pool, in
+    turns plain, timed, timed, plain after a warming timed turn, medians;
+    the sweep is one nonce at a difficulty nothing meets. ``plain_us`` a
+    launch (every untraced launch) and dropping it (its event destroyed);
+    ``timed_us`` a traced launch and dropping it (its pair back in the
+    pool); ``read_us`` its ``timing()`` once done; ``extra_us`` what a
+    traced launch adds, timed and read less plain."""
+    import statistics
+
+    import torch
+
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.ops import extend_midstate, sha256_cuda
+
+    ext = extend_midstate(*core.header_midstate(bytes(range(80))))
+
+    def turn(timed: bool) -> tuple[float, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sha256_cuda.timed_launches(timed):
+            swept = [sha256_cuda.sweep_launch(ext, 0, 1, 64, device=device)
+                     for _ in range(n)]
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if timed:
+            for launched in swept:
+                launched.timing()
+        t3 = time.perf_counter()
+        swept.clear()
+        t4 = time.perf_counter()
+        return (t1 - t0 + t4 - t3) / n * 1e6, (t3 - t2) / n * 1e6
+
+    turn(True)
+    times: dict[str, list[float]] = {"plain": [], "timed": [], "read": []}
+    for label in ("plain", "timed", "timed", "plain"):
+        launch_us, read_us = turn(label == "timed")
+        times[label].append(launch_us)
+        if label == "timed":
+            times["read"].append(read_us)
+    out = {f"{k}_us": statistics.median(v) for k, v in times.items()}
+    out["extra_us"] = out["timed_us"] + out["read_us"] - out["plain_us"]
+    return out
+
+
+def tracing_cost(rows: dict) -> dict:
+    """What tracing costs the pipelined ``Miner``, from phase 11 a's runs
+    in ``TRACE_TURNS``: each traced run against the off run next to it
+    (traced, off, off, traced pairs the first with the second and the
+    fourth with the third), host ms a block traced less off, and the
+    median walls."""
+    import statistics
+
+    traced, off = rows["traced"], rows["off"]
+    pairs = [round(t["host_ms_per_block"] - o["host_ms_per_block"], 4)
+             for t, o in zip(traced, off)]
+    return {"pair_ms_per_block": pairs,
+            "median_ms_per_block": statistics.median(pairs),
+            "median_wall_s": {
+                turn: statistics.median(r["wall_s"] for r in rows[turn])
+                for turn in ("traced", "off")}}
+
+
+def traced_miner_run(traced: bool) -> dict:
+    """One d24/n1000 pipelined Miner run, the telemetry on or off (the
+    kill switch ``MPIBT_TELEMETRY_OFF`` sets), with ``mine_timed``'s
+    events around the library's call that launches every sweep; traced,
+    also its pipeline object, its critical path checked for every height,
+    the device windows' union held to the sweeps' event sum and its
+    bubble to 1 - that sum / wall."""
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.blocktrace.critical_path import \
+        critical_path_report
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.meshwatch.pipeline import (
+        pipeline_report, profiler, reset_profiler)
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+
+    cfg = MinerConfig(difficulty_bits=24, n_blocks=1000, batch_pow2=24,
+                      backend="cuda", kernel="cuda", device="cuda")
+    telemetry.reset()
+    reset_profiler()
+    prev = telemetry.set_telemetry_disabled(not traced)
+    try:
+        miner = Miner(cfg, pipeline=True)
+        run = mine_timed(miner, bracket="library", sample_clocks=False)
+    finally:
+        telemetry.set_telemetry_disabled(prev)
+    what = f"phase 11a {'traced' if traced else 'off'}"
+    check(run["tip_hash"] == PINNED_TIPS[(24, 1000, 24)],
+          f"{what}: tip {run['tip_hash']}")
+    check(run["launches"] == 1000, f"{what}: {run['launches']} launches")
+    check(miner.backend.rung == "cuda:cuda"
+          and miner.backend.degradations == [],
+          f"{what}: rung {miner.backend.rung}, degradations "
+          f"{miner.backend.degradations}")
+    out = {"wall_s": run["wall_s"], "kernel_s": run["kernel_s"],
+           "launches": run["launches"],
+           "host_ms_per_block": host_ms_per_block(run, 1000)}
+    if not traced:
+        check(profiler().records() == [], f"{what}: records were kept")
+        return out
+    records = profiler().records()
+    pipe = pipeline_report(records)
+    rank = pipe["ranks"]["0"]
+    report = critical_path_report(records)
+    out["max_gap_pct"] = check_critical_path(report, 1000, what)
+    check_device_union(rank["device_busy_s"], run["kernel_s"], what)
+    expected_bubble = check_bubble(pipe["bubble_fraction"], run["kernel_s"],
+                                   run["wall_s"], what)
+    discards = telemetry.default_registry().total(
+        "speculative_discards_total")
+    out.update(pipeline={
+        "host_overlapped_fraction": pipe["host_overlapped_fraction"],
+        "bubble_fraction": pipe["bubble_fraction"],
+        "speculative_discards": int(discards)},
+        device_union_s=rank["device_busy_s"],
+        union_over_events=rank["device_busy_s"] / run["kernel_s"],
+        expected_bubble=expected_bubble,
+        pipeline_wall_s=rank["wall_s"],
+        unattributed_segments=report["unattributed_segments"])
+    return out
+
+
+def incident_run(td: str, name: str, faulted: bool) -> dict:
+    """``mine`` d20/n10/b20 with ``--incident-dir`` and INCIDENT_ENV, with
+    or without INCIDENT_FAULT; returns rc, summary, the incident events,
+    the bundles and the registry's ``incidents_total``."""
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.meshwatch.pipeline import reset_profiler
+
+    incident_dir = os.path.join(td, name)
+    argv = ["mine", "--difficulty", "20", "--blocks", "10",
+            "--batch-pow2", "20", "--incident-dir", incident_dir]
+    if faulted:
+        plan = os.path.join(td, f"{name}_plan.json")
+        with open(plan, "w") as f:
+            json.dump({"version": 1, "strict": True,
+                       "faults": [INCIDENT_FAULT]}, f)
+        argv += ["--fault-plan", plan]
+    telemetry.reset()
+    telemetry.clear_events()
+    reset_profiler()
+    saved = {k: os.environ.get(k) for k in INCIDENT_ENV}
+    os.environ.update(INCIDENT_ENV)
+    try:
+        rc, summary = run_cli(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    what = f"phase 11c {name}"
+    check(rc == 0, f"{what}: rc {rc}: {summary}")
+    check_no_step_down(summary, "cuda:cuda", what)
+    check(summary.get("tip_hash") == PINNED_TIPS[(20, 10, 20)],
+          f"{what}: tip {summary.get('tip_hash')}")
+    return {"summary": summary,
+            "events": telemetry.recent_events(event="incident"),
+            "bundles": sorted(pathlib.Path(incident_dir).glob(
+                "incident_*.json")),
+            "incidents_total": telemetry.default_registry().total(
+                "incidents_total"),
+            "dir": incident_dir}
+
+
+def phase_trace(device, cold_nvcc: int) -> dict:
+    """Phase 11: per-block tracing on the main path. (a) the d24/n1000
+    pipelined Miner traced and off in turns: walls, host ms a block, the
+    pipeline object, every height's critical path, the device windows
+    against the sweeps' events, and the timing events' host cost a
+    launch; (b) ``mine --fused`` d24/n1000 at 100 a call, traced: the
+    pipeline object, one host wait a call, no hidden sync, each k-block
+    program built once, no nvcc build on the warm cache (``cold_nvcc``:
+    the startup build's, 1 from a cold checkout); (c) ``--incident-dir``:
+    the clean d20/n10 run raises nothing, the faulted one one
+    ``event_storm`` with a complete bundle; (d) the overhead audits on the
+    card, against the reference's bound."""
+    import torch
+
+    from mpi_blockchain_tpu_torch import dispatchwatch, telemetry
+    from mpi_blockchain_tpu_torch.blocktrace.overhead import (
+        measure_block_observe, measure_trace_overhead)
+    from mpi_blockchain_tpu_torch.chainwatch import BUNDLE_KEYS
+    from mpi_blockchain_tpu_torch.meshwatch.pipeline import reset_profiler
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+    from mpi_blockchain_tpu_torch.perfwatch.detector import SECTION_BOUNDS
+
+    out: dict = {"miner": {"traced": [], "off": []}}
+    for turn in TRACE_TURNS:
+        row = traced_miner_run(turn == "traced")
+        out["miner"][turn].append(row)
+        extra = ""
+        if turn == "traced":
+            extra = (f"; pipeline {row['pipeline']}; critical path "
+                     f"complete for heights 1..1000, max gap "
+                     f"{row['max_gap_pct']}%; device union "
+                     f"{row['device_union_s']:.6f} s = "
+                     f"{row['union_over_events']:.6f} of the sweeps' "
+                     f"events; 1 - sweeps / wall "
+                     f"{row['expected_bubble']:.4f}")
+        log(f"phase 11a d24/n1000 pipelined Miner, {turn}: wall "
+            f"{row['wall_s']:.6f} s, sweeps {row['kernel_s']:.6f} s, host "
+            f"{row['host_ms_per_block']:.4f} ms a block{extra}")
+    out["tracing_cost"] = tracing_cost(out["miner"])
+    cost = out["tracing_cost"]
+    log(f"phase 11a tracing's cost: host ms a block traced less off, pair "
+        f"by pair {cost['pair_ms_per_block']}, median "
+        f"{cost['median_ms_per_block']:.4f} ms; walls traced "
+        f"{cost['median_wall_s']['traced']:.6f} s against off "
+        f"{cost['median_wall_s']['off']:.6f} s (medians)")
+    events = event_cost_us(device)
+    out["event_cost_us"] = events
+    log(f"phase 11a timing events a launch: sweep_launch "
+        f"{events['timed_us']:.4f} us traced (a pooled pair recorded in "
+        f"the library's call) and {events['read_us']:.4f} us to read it, "
+        f"against {events['plain_us']:.4f} us with one plain event: "
+        f"{events['extra_us']:.4f} us more a traced launch")
+
+    # (b) the fused run through the CLI, traced, with the census. The
+    # detector's check also takes its one-time prototype warning.
+    check(sync_detector_works(device),
+          "sync debug mode did not flag .item() on the card")
+    dispatchwatch.clear_compiles()
+    telemetry.reset()
+    reset_profiler()
+    sha256_cuda.launches = sha256_block.step_launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rc, summary = run_cli(["mine", "--fused", "--blocks-per-call",
+                                   "100", "--difficulty", "24", "--blocks",
+                                   "1000", "--batch-pow2", "24"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = count_syncs(caught)
+    where = [f"{w.filename}:{w.lineno}" for w in caught
+             if "synchronizing" in str(w.message)]
+    census = dispatchwatch.compile_census()
+    nvcc = census.get(sha256_cuda.COMPILE_SITE, {}).get("compiles", 0)
+    fused = census.get("fused", {})
+    check(rc == 0 and summary.get("tip_hash")
+          == PINNED_TIPS[(24, 1000, 24)],
+          f"phase 11b mine --fused: rc {rc}, {summary}")
+    check("pipeline" in summary, "phase 11b: no pipeline object")
+    check(summary["host_waits"] == 10 and syncs == 0,
+          f"phase 11b: {summary['host_waits']} host waits for 10 calls, "
+          f"{syncs} hidden syncs at {where}")
+    check(fused.get("compiles") == fused.get("cache_entries") == 1
+          and dispatchwatch.recompiles(census) == 0,
+          f"phase 11b: fused census {fused}")
+    check(nvcc == 0, f"phase 11b: {nvcc} nvcc builds on a warm cache")
+    check(cold_nvcc in (0, 1), f"startup: {cold_nvcc} nvcc builds")
+    out["fused"] = {"summary_pipeline": summary["pipeline"],
+                    "wall_s": summary["wall_s"],
+                    "host_waits": summary["host_waits"],
+                    "hidden_syncs": syncs, "census": census,
+                    "sweeps": sha256_cuda.launches,
+                    "steps": sha256_block.step_launches,
+                    "startup_nvcc_builds": cold_nvcc}
+    log(f"phase 11b mine --fused d24/n1000 at 100 a call, traced: tip "
+        f"matches, wall {summary['wall_s']} s, pipeline "
+        f"{summary['pipeline']}, {summary['host_waits']} host waits for 10 "
+        f"calls, {syncs} hidden syncs; census {census}; nvcc builds: "
+        f"{cold_nvcc} at startup, 0 in the run")
+
+    # (c) the watchdog: a clean run and a faulted one.
+    with tempfile.TemporaryDirectory() as td:
+        clean = incident_run(td, "clean", faulted=False)
+        check_no_incident(clean["dir"], clean["events"],
+                          telemetry.default_registry(), "phase 11c clean")
+        faulted = incident_run(td, "faulted", faulted=True)
+        names = [b.name for b in faulted["bundles"]]
+        check([e["rule"] for e in faulted["events"]] == ["event_storm"]
+              and faulted["incidents_total"] == 1
+              and names == ["incident_0001_event_storm.json"],
+              f"phase 11c faulted: incidents {faulted['events']}, bundles "
+              f"{names}")
+        bundle = json.loads(faulted["bundles"][0].read_text())
+        missing = set(BUNDLE_KEYS) - set(bundle)
+        memory = bundle["memory"].get(f"cuda:{device.index}", {})
+        check(not missing and memory.get("bytes_in_use", 0) > 0,
+              f"phase 11c: bundle missing {sorted(missing)}, memory "
+              f"{bundle['memory']}")
+        out["incidents"] = {
+            "clean": {"rung": clean["summary"]["rung"]},
+            "faulted": {"rung": faulted["summary"]["rung"],
+                        "detail": bundle["detail"],
+                        "heights": bundle["heights"],
+                        "memory": memory}}
+    log(f"phase 11c --incident-dir d20/n10: clean run at the pin, 0 "
+        f"incidents, no bundle; faulted run ({INCIDENT_FAULT}) at the pin, "
+        f"rc 0, one event_storm {bundle['detail']} at heights "
+        f"{bundle['heights']}, bundle with all {len(BUNDLE_KEYS)} keys, "
+        f"memory {memory}")
+
+    # (d) the overhead audits on the card, after the estimator's zero.
+    bound = SECTION_BOUNDS["trace_overhead"]
+    null = measure_trace_overhead(device=str(device), null=True)
+    reads = []
+    for attempt, kwargs in enumerate(OVERHEAD_ATTEMPTS):
+        if attempt:
+            time.sleep(OVERHEAD_PAUSE_S)
+        reads.append(measure_trace_overhead(device=str(device), **kwargs))
+        if reads[-1]["overhead_pct"] <= bound:
+            break
+    check(reads[-1]["overhead_pct"] <= bound,
+          f"phase 11d: overhead {[r['overhead_pct'] for r in reads]}% "
+          f"over the {bound}% bound")
+    observe = measure_block_observe(device=str(device))
+    check(observe["block_observe_us"]
+          <= SECTION_BOUNDS["trace_block_observe"],
+          f"phase 11d: block observe {observe}")
+    out["overhead"] = {"null": null, "trace_overhead": reads,
+                       "trace_block_observe": observe}
+    log(f"phase 11d trace_overhead on the card: null (both halves off) "
+        f"{null['overhead_pct']}%, reads "
+        f"{[r['overhead_pct'] for r in reads]}% (bound {bound}%), last "
+        f"read {reads[-1]}; block observe {observe} (bound "
+        f"{SECTION_BOUNDS['trace_block_observe']} us)")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2432,6 +2917,9 @@ def main() -> int:
                 b.result()
         log(f"built the CUDA kernel and the C++ core in "
             f"{time.perf_counter() - t0:.1f} s")
+        from mpi_blockchain_tpu_torch import dispatchwatch
+        startup_nvcc = dispatchwatch.compile_census().get(
+            sha256_cuda.COMPILE_SITE, {}).get("compiles", 0)
         rng = np.random.default_rng(20261016)
         mismatches, max_err = phase_kernel_vs_plain(rng, device)
         phase_backend(rng, device)
@@ -2447,6 +2935,7 @@ def main() -> int:
                           chain["d20_wall_s"])
         sim = phase_sim(device)
         serve = phase_serve(device)
+        trace = phase_trace(device, startup_nvcc)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2481,8 +2970,12 @@ def main() -> int:
             serve["serve_metrics"]["launches"],
         "serve_mismatches": serve["smoke"]["mismatches"]
         + serve["full_width"]["mismatches"],
+        "launches_trace_miner_d24_n1000": {
+            turn: [r["launches"] for r in rows]
+            for turn, rows in trace["miner"].items()},
+        "launches_trace_fused_d24_n1000": trace["fused"]["sweeps"],
         "bench": bench, "mesh8": mesh, "resilience": resilience,
-        "sim": sim, "serve": serve}, {
+        "sim": sim, "serve": serve, "trace": trace}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",
@@ -2492,6 +2985,7 @@ def main() -> int:
         "launches_sim_adversarial": sim["preset"]["step_launches"],
         "launches_sim_d24": sim["d24"]["step_launches"],
         "launches_serve": serve["step_launches"],
+        "launches_trace_fused_d24_n1000": trace["fused"]["steps"],
         "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
         "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
     log(json.dumps({"ok": True, "device": {

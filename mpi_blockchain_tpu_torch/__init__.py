@@ -14,6 +14,13 @@ Layout:
   parallel/    winner-select of more than one miner, the gloo world
   resilience/  retries, the step-down ladder, fault injection
   telemetry/   metrics, spans, events, causal logs, the flight recorder
+  blocktrace/  per-block trace frames, the critical path, the overhead audit
+  meshwatch/   the dispatch pipeline profiler (bubble and overlap)
+  meshprof/    collective skew spans, device memory watermarks
+  dispatchwatch/  the compile census (nvcc builds, k-block programs)
+  chainwatch/  the live watchdog: anomaly rules, incidents, bundles
+  service/     the blockserve front door (HTTP, mempool, template feed)
+  perfwatch/   /metrics, /healthz, /events; history and the detector
   utils/       sealed checkpoints
   simulation.py  the adversarial multi-group bus (BASELINE config 5)
   sim/         the vectorized scenario engine and its adversaries (numpy)

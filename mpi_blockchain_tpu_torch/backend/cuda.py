@@ -31,7 +31,9 @@ More than one miner (the reference's ``('miners',)`` mesh), in two forms:
   below 2^32 every rank sweeps the tail alone, as every reference process
   runs the C++ tail. The launch starts the first round's slice; the
   collectives run only in the finish, on the thread that consumes the
-  search, so no rank enters a collective that another skipped.
+  search, so no rank enters a collective that another skipped. Each
+  round is a ``skew_span(site="mesh.sweep")`` (``meshprof``), as the
+  reference's sharded round is.
 
 Spans: ``backend.cuda.dispatch`` covers putting the search on the card
 (the per-template precompute and the launch), the counterpart of
@@ -58,6 +60,7 @@ import torch
 
 from .. import core
 from ..config import ConfigError
+from ..meshprof.spans import skew_span
 from ..ops import extend_midstate, select_kernel
 from ..parallel.mesh import NONCE_SPACE, winner_select
 from ..resilience import injection
@@ -173,8 +176,9 @@ class CudaBackend(MinerBackend):
         the function that gives its (count, min_nonce). With the CUDA
         kernel the sweep is on the device when this returns, and the
         function carries ``ready``, which says without blocking whether
-        the device is done; with the plain version the function does all
-        the work."""
+        the device is done, and ``sweep``, the ``LaunchedSweep`` (its time
+        on the card); with the plain version the function does all the
+        work."""
         if count <= 0:
             return lambda: _NOT_FOUND
         if self.effective_kernel == "cuda":
@@ -186,6 +190,7 @@ class CudaBackend(MinerBackend):
             def read() -> tuple[int, int]:
                 return launched.result()
             read.ready = launched.ready
+            read.sweep = launched
             return read
         return functools.partial(self._searcher(difficulty_bits), ext, base,
                                  count, early_exit=True)
@@ -196,8 +201,9 @@ class CudaBackend(MinerBackend):
         With the CUDA kernel the sweep (in a world of processes, this
         rank's slice of the first round) is on the device when this
         returns, the finish waits for its 8-byte result, and the finish
-        carries ``ready`` (see ``_start``); with the plain version the
-        finish does all the work."""
+        carries ``ready`` (see ``_start``) and, when the search is that
+        one sweep, ``sweep``; with the plain version the finish does all
+        the work."""
         # Fault-injection hook: raise/hang fire before any device work,
         # corrupt/partial damage the finished result.
         fault = injection.check("backend.cuda.dispatch",
@@ -222,6 +228,8 @@ class CudaBackend(MinerBackend):
                 _faulted_result(fault, res, start_nonce)
         if hasattr(read, "ready"):
             finish.ready = read.ready
+        if hasattr(read, "sweep"):
+            finish.sweep = read.sweep
         return finish
 
     def _start_world(self, ext, start: int, end: int, difficulty_bits: int):
@@ -245,9 +253,12 @@ class CudaBackend(MinerBackend):
         def run() -> tuple[int, int]:
             read = first
             for r in range(n_rounds):
-                if read is None:
-                    read = rank_slice(r)
-                count, best = winner_select(*read(), self.group)
+                # The skew span stamps this rank's arrival at the round
+                # whose epilogue is the winner-select rendezvous.
+                with skew_span(site="mesh.sweep"):
+                    if read is None:
+                        read = rank_slice(r)
+                    count, best = winner_select(*read(), self.group)
                 read = None
                 if count > 0:
                     return count, best

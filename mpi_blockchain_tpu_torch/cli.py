@@ -66,6 +66,14 @@ must search the same header). ``--serve-metrics PORT`` (or
 (``perfwatch/server.py``); port 0 binds a free port, announced on stderr.
 Like ``mine``, ``serve`` runs on the card unless ``--device cpu``.
 
+Every block is traced (``blocktrace``, ``meshwatch.pipeline``), and the
+``mine`` summary carries the reference's ``pipeline`` object once any
+dispatch was recorded: ``host_overlapped_fraction``, ``bubble_fraction``
+(the device's idle share of the run) and ``speculative_discards``.
+``--incident-dir DIR`` (or ``MPIBT_INCIDENT_DIR``) on mine, bench, sim and
+serve arms the ``chainwatch`` watchdog for the run's length, with its
+evidence bundles written into DIR.
+
 ``mine`` searches through the resilience layer's ``ResilientBackend``
 (retries, host re-validation of every winner, the step-down ladder
 ``cuda:<kernel>`` → ``cuda:torch`` → ``cpu``); the summary names the rung
@@ -130,6 +138,13 @@ def _add_metrics_dump_arg(p: argparse.ArgumentParser) -> None:
                         "the duration of the run (0 = ephemeral port, "
                         "announced on stderr; env MPIBT_METRICS_PORT also "
                         "enables it)")
+    p.add_argument("--incident-dir", metavar="DIR", default=None,
+                   help="arm the chainwatch live watchdog with an "
+                        "incident-bundle directory: anomaly rules run on "
+                        "the per-block telemetry cadence and a firing rule "
+                        "writes a bounded, non-fatal evidence bundle into "
+                        "DIR while the run keeps mining (env "
+                        "MPIBT_INCIDENT_DIR also arms it)")
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -320,16 +335,19 @@ def _mine(args, cfg, group, is_main: bool) -> int:
     save = None
     # Every rank of a world mines the same chain; only rank 0 writes it.
     if args.checkpoint_every and is_main:
+        from .meshwatch.pipeline import profiler
         from .resilience.policy import call_with_retry
         from .utils.checkpoint import save_chain
 
         def save(height: int) -> None:
             # Transient file system errors retry under the
             # checkpoint.write budget: a periodic save must not kill a
-            # long run.
-            call_with_retry(
-                lambda: save_chain(miner.node, args.checkpoint, cfg),
-                site="checkpoint.write")
+            # long run. The save is the dispatch pipeline's `checkpoint`
+            # segment: it sits on the host between sweeps.
+            with profiler().segment_on_last("checkpoint"):
+                call_with_retry(
+                    lambda: save_chain(miner.node, args.checkpoint, cfg),
+                    site="checkpoint.write")
     service_state = service_summary = None
     if args.serve is not None:
         from .service import install_service
@@ -389,6 +407,20 @@ def _mine(args, cfg, group, is_main: bool) -> int:
                        rung=getattr(backend, "rung", None))
     if service_summary is not None:
         summary["service"] = service_summary
+    from .meshwatch.pipeline import pipeline_report
+    from .telemetry import default_registry
+    pipe = pipeline_report()
+    if pipe["dispatch_count"]:
+        # host_overlapped_fraction: how much host work hid behind device
+        # windows; bubble_fraction: the device's idle share of the run.
+        # The device window is the card's own (the pipelined Miner), the
+        # call to its read-back (fused), or the search call (no card).
+        summary["pipeline"] = {
+            "host_overlapped_fraction": pipe["host_overlapped_fraction"],
+            "bubble_fraction": pipe["bubble_fraction"],
+            "speculative_discards": int(default_registry().total(
+                "speculative_discards_total")),
+        }
     degradations = getattr(backend, "degradations", [])
     if degradations:
         # Converged after stepping down: rc 0, but loudly. The run
@@ -948,6 +980,19 @@ def main(argv: list[str] | None = None) -> int:
             print(f"serving metrics on http://127.0.0.1:{port} "
                   f"(/metrics /healthz /events)", file=sys.stderr,
                   flush=True)
+    incident_dir = getattr(args, "incident_dir", None)
+    if incident_dir is None and hasattr(args, "incident_dir"):
+        # The environment arms only the subcommands that take the flag.
+        incident_dir = os.environ.get("MPIBT_INCIDENT_DIR") or None
+    chainwatch_armed = False
+    if incident_dir:
+        # The live watchdog: its rules ride the per-block observation;
+        # a firing rule writes its evidence bundle into the directory.
+        from . import chainwatch
+        chainwatch.install(incident_dir)
+        chainwatch_armed = True
+        print(f"chainwatch: armed, incident bundles -> {incident_dir}",
+              file=sys.stderr, flush=True)
     try:
         if fault_arg:
             from .resilience import injection
@@ -1003,6 +1048,9 @@ def main(argv: list[str] | None = None) -> int:
                 dump_metrics(args.metrics_dump)
             except OSError as e:
                 print(f"metrics-dump failed: {e}", file=sys.stderr)
+        if chainwatch_armed:
+            from . import chainwatch
+            chainwatch.uninstall()
         # The endpoint releases its port on every exit path.
         if metrics_server is not None:
             metrics_server.close()

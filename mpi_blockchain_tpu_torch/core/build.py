@@ -18,6 +18,8 @@ import os
 import pathlib
 import subprocess
 import threading
+import time
+from typing import Callable
 
 from ..config import KernelError
 
@@ -34,12 +36,14 @@ def build_log(out: pathlib.Path) -> pathlib.Path:
 
 
 def build_shared(command: list[str], sources: list[pathlib.Path],
-                 headers: list[pathlib.Path], out: pathlib.Path
+                 headers: list[pathlib.Path], out: pathlib.Path,
+                 on_build: Callable[[float], None] | None = None
                  ) -> pathlib.Path:
     """Runs ``command -o out sources...`` unless ``out`` is newer than
     every source and header, and keeps the compiler's output of a build
     that succeeds in ``build_log(out)``. Raises KernelError with the
-    compiler's output when the build fails."""
+    compiler's output when the build fails. ``on_build`` is called with
+    the compiler's seconds after a build that ran and succeeded."""
     if out.exists():
         built = out.stat().st_mtime
         if all(p.stat().st_mtime <= built for p in (*sources, *headers)):
@@ -47,6 +51,7 @@ def build_shared(command: list[str], sources: list[pathlib.Path],
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(
         f".{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run([*command, "-o", str(tmp),
                                *(str(s) for s in sources)],
@@ -58,6 +63,8 @@ def build_shared(command: list[str], sources: list[pathlib.Path],
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+    if on_build is not None:
+        on_build(time.perf_counter() - t0)
     return out
 
 

@@ -30,12 +30,22 @@ change. A world of processes would need a collective inside the k-block
 call; it is not ported (the CLI refuses ``--fused`` with
 ``--coordinator``).
 
-The reference's block tracing and profiler calls are not ported, as in
-``models/miner.py``. Its spans are: ``fused.dispatch`` around the
-enqueue of a k-block call, ``miner.append`` around each C++ append. The
-recovery search goes through ``backend_from_config``, the resilient
-backend: retries, host re-validation and the step-down ladder, as in the
-reference.
+Tracing, as in the reference: one ``meshwatch.pipeline`` dispatch record
+per k-block call (``kind="fused"``, its height and k). Its ``enqueue``
+segment covers the input build and the call; its ``device`` window opens
+when the call returns and closes when the call's nonces are on the host
+(``_Readback.wait``), the reference's own definition (its window closes
+when the call's value materializes). Each block's ``validate`` and
+``append`` segments are recorded in that block's ``trace_block`` frame,
+so each block of a call keeps its own; a recovery bail-out strips the
+block identity of the calls it abandons (``strip_block_identity``); and
+``observe_batch_metrics`` observes the span's blocks after the
+``on_progress`` seam. The first use of each k-block program is a compile
+in the ``dispatchwatch`` census (site ``fused``). The spans are:
+``fused.dispatch`` around the enqueue of a k-block call, ``miner.append``
+around each C++ append. The recovery search goes through
+``backend_from_config``, the resilient backend: retries, host
+re-validation and the step-down ladder, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import collections
 import dataclasses
 import json
 import logging
+import time
 from typing import Callable
 
 import numpy as np
@@ -51,8 +62,13 @@ import torch
 from .. import core
 from ..backend import backend_from_config
 from ..backend.cuda import resolve_device
+from ..blocktrace import trace_block
+from ..blocktrace.critical_path import observe_batch_metrics
 from ..config import MAX_EXTRA_NONCE, ConfigError, MinerConfig, \
     extend_payload
+from ..dispatchwatch import compile_scope, current_site, note_cache, \
+    record_compile
+from ..meshwatch.pipeline import profiler, strip_block_identity
 from ..ops import resolve_kernel, sha256_block, sha256_cuda
 from ..telemetry.spans import span
 
@@ -137,6 +153,8 @@ class _Batch:
     height: int              # chain height the call started from
     payloads: list[bytes]
     nonces: _Readback
+    prec: object             # the call's pipeline record
+    t_issue: float           # when the call returned (profiler clock)
 
 
 class FusedMiner:
@@ -179,12 +197,21 @@ class FusedMiner:
         _LOGGER.debug("%s", json.dumps(event, sort_keys=True))
 
     def _fn(self, k: int):
+        """The cached k-block program. Its first use is one compile in
+        the census (site ``fused``), and the cache's size is noted, so
+        ``compiles == cache_entries`` holds while no k is built twice."""
         fn = self._fns.get(k)
         if fn is None:
-            fn = self._fns[k] = make_fused_miner(
-                k, self.config.effective_batch_pow2,
-                self.config.difficulty_bits, kernel=self.effective_kernel,
-                device=self.device, n_miners=self.config.n_miners)
+            with compile_scope(site="fused"):
+                t0 = time.perf_counter()
+                fn = self._fns[k] = make_fused_miner(
+                    k, self.config.effective_batch_pow2,
+                    self.config.difficulty_bits,
+                    kernel=self.effective_kernel, device=self.device,
+                    n_miners=self.config.n_miners)
+                record_compile(site=current_site(), stage="program",
+                               duration_s=time.perf_counter() - t0)
+            note_cache(site="fused", entries=len(self._fns))
         return fn
 
     def warmup(self, k: int | None = None) -> None:
@@ -200,13 +227,24 @@ class FusedMiner:
     def mine_chain(self, n_blocks: int | None = None,
                    on_progress: Callable[[int], None] | None = None) -> None:
         """Mines n_blocks; validates and appends every block in C++.
-        ``on_progress(height)`` runs after each appended span."""
+        ``on_progress(height)`` runs after each appended span, in the
+        newest block's trace frame (its checkpoint segment joins that
+        block); the span's blocks are observed after it."""
         n = n_blocks if n_blocks is not None else self.config.n_blocks
         while n > 0:
+            start = self.node.height
             mined = self._mine_span(n)
             n -= mined
             if on_progress is not None and mined:
-                on_progress(self.node.height)
+                with trace_block(self.node.height):
+                    on_progress(self.node.height)
+            if mined:
+                # One grouping pass over the span's own records: a record
+                # a call, at most one more for a recovery, plus the
+                # checkpoint's.
+                observe_batch_metrics(
+                    [start + j + 1 for j in range(mined)],
+                    profiler().records(tail=mined + 8))
 
     def _to_device(self, words: np.ndarray) -> torch.Tensor:
         """uint32 words as a tensor on the run's device; to a card through a
@@ -235,13 +273,18 @@ class FusedMiner:
         def dispatch_one() -> None:
             nonlocal prev, height, remaining
             k = min(remaining, self.blocks_per_call)
-            payloads = [self.config.payload(height + j + 1)
-                        for j in range(k)]
-            data = np.stack([_words_be(core.sha256d(p)) for p in payloads])
-            with span("fused.dispatch", k=k, height=height):
-                nonces, prev = self._fn(k)(prev, self._to_device(data),
-                                           height)
-            batches.append(_Batch(height, payloads, _Readback(nonces)))
+            prec = profiler().dispatch(kind="fused", height=height, k=k)
+            with prec.segment("enqueue"):
+                payloads = [self.config.payload(height + j + 1)
+                            for j in range(k)]
+                data = np.stack([_words_be(core.sha256d(p))
+                                 for p in payloads])
+                with span("fused.dispatch", k=k, height=height):
+                    nonces, prev = self._fn(k)(prev, self._to_device(data),
+                                               height)
+                readback = _Readback(nonces)
+            batches.append(_Batch(height, payloads, readback, prec,
+                                  prec.now()))
             height += k
             remaining -= k
 
@@ -249,18 +292,31 @@ class FusedMiner:
             dispatch_one()
         while batches:
             batch = batches.popleft()
+            prec = batch.prec
             self.host_waits += batch.nonces.event is not None
             nonces = batch.nonces.wait()
+            prec.add_segment("device", batch.t_issue, prec.now())
             if remaining > 0:
                 dispatch_one()
             for j, payload in enumerate(batch.payloads):
-                cand = self.node.make_candidate(payload)
-                with span("miner.append", height=batch.height + j + 1):
-                    accepted = self.node.submit(core.set_nonce(cand,
-                                                               nonces[j]))
+                # Each block's frame: its validate and append segments in
+                # the call's record stay its own in the critical path.
+                with trace_block(batch.height + j + 1):
+                    with prec.segment("validate"):
+                        cand = self.node.make_candidate(payload)
+                        winner = core.set_nonce(cand, nonces[j])
+                    with span("miner.append", height=batch.height + j + 1), \
+                            prec.segment("append"):
+                        accepted = self.node.submit(winner)
                 if not accepted:
                     # The calls still in flight mined on a tip that is now
-                    # wrong; their results are dropped.
+                    # wrong; their results are dropped. Their heights will
+                    # be mined again, so their records lose the block
+                    # identity (this call keeps the j blocks it appended,
+                    # and its exact per-block segments).
+                    strip_block_identity(prec.record, keep_k=j)
+                    for stale in batches:
+                        strip_block_identity(stale.prec.record)
                     self._recover_block(batch.height + j + 1, nonces[j])
                     return self.node.height - start
                 self._log({"event": "block_mined", "backend": "cuda-fused",

@@ -38,14 +38,49 @@ carry the reference's spans: ``miner.block`` around a block,
 consume of a dispatch), ``miner.append`` around the C++ append. Two
 seams are the reference's: ``payload_for`` (the template feed) and
 ``_block_mined`` (runs after every append; the serving front door marks
-transactions included there). The reference's block tracing, pipeline
-profiler and the elastic ``_begin_block`` seam are not ported yet.
+transactions included there). The elastic ``_begin_block`` seam is not
+ported yet.
+
+Both drivers trace every block as the reference does: a
+``blocktrace.trace_block`` frame around the block (and one per template),
+one ``meshwatch.pipeline`` dispatch record per sweep with ``enqueue``,
+``device``, ``validate`` and ``append`` segments (the ``on_block``
+checkpoint seam runs in the block's frame, so its ``checkpoint`` segment
+joins the block), discarded speculative dispatches stripped of their
+block identity, and ``observe_block_metrics`` after each block, which
+feeds ``block_critical_path_ms{stage}`` and ``block_trace_gap_pct`` and
+evaluates the ``chainwatch`` watchdog.
+
+The ``device`` window. The sequential driver's is the search call, as in
+the reference. The reference's pipelined driver closes the window when a
+worker thread's future completes; the port has no worker, so a window
+closed at the consume would count every microsecond of host work done
+while the card sat idle as device time, and the bubble fraction would read
+near 0 whatever the card did. So on the card the window comes from the
+card: with its telemetry on, the driver issues each sweep inside
+``sha256_cuda.timed_launches``, so ``sweep_launch`` records timing events
+around it, and at the consume ``start.elapsed_time(end)`` is the sweep's
+device time (with the telemetry off, or on any other path, a sweep
+carries one plain event, which costs the host less). Sweeps on one stream
+run in order, so on the host's clock the window is ``[max(launched,
+previous window's end), + device time]``, no extra synchronization and no
+thread (``_card_window``). A discarded speculative sweep that reached the
+card is drained the same way once it is done, at a later consume, as
+unattributed work; one still on the card when the chain ends stays
+unrecorded, and one that failed is a ``speculative_dispatch_failed``
+event. Where the search has no card events (the C++ sweep, the plain
+sweep, a world of processes, a retried search) the window is the call
+that did the work: the issue call of a synchronous ``search_async``, else
+the consume. The ``enqueue`` segment covers the
+candidate build and the issue call (on the card, the host's midstate
+precompute and the launch).
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -54,9 +89,15 @@ from typing import Callable
 
 from .. import core
 from ..backend import MinerBackend, backend_from_config
-from ..config import MAX_EXTRA_NONCE, MinerConfig, extend_payload
+from ..blocktrace import trace_block
+from ..blocktrace.critical_path import observe_block_metrics
+from ..config import MAX_EXTRA_NONCE, KernelError, MinerConfig, \
+    extend_payload
+from ..meshwatch.pipeline import profiler, strip_block_identity
+from ..ops.sha256_cuda import timed_launches
 from ..telemetry import counter, heartbeat, histogram
 from ..telemetry.events import emit_event, env_number
+from ..telemetry.registry import telemetry_disabled
 from ..telemetry.spans import span
 
 _LOGGER = logging.getLogger("mpi_blockchain_tpu_torch")
@@ -110,25 +151,36 @@ class _WindowSet:
 class _SweepDispatch:
     """One issued sweep of the pipelined driver: its place in the sweep
     order (height, template, window index), the exact candidate it
-    searched, and its future."""
+    searched, its future and its pipeline record. ``t_issue`` and
+    ``t_issued`` bracket the issue call on the profiler's clock; ``sync``
+    says the future was already done when the call returned (a
+    synchronous ``search_async``: the search ran inside it)."""
     height: int
     template: int
     window_index: int
     window: tuple
     cand: bytes
+    prec: object
     future: concurrent.futures.Future | None = None
+    t_issue: float = 0.0
+    t_issued: float = 0.0
+    sync: bool = False
 
 
-def _drain_discarded(fut: concurrent.futures.Future) -> None:
-    """Done-callback for a discarded dispatch that had already reached the
-    backend: its result is dropped, but a failure is an event a
-    post-mortem can see."""
+def _drain_discarded(d: _SweepDispatch, fut) -> None:
+    """Done-callback for a discarded dispatch that had already run (a
+    synchronous ``search_async``): its search ran in the issue call, so
+    that window stays visible in the pipeline record as unattributed work
+    (identity stripped); a failure is an event a post-mortem can see."""
     if fut.cancelled():
         return
     exc = fut.exception()
     if exc is not None:
         emit_event({"event": "speculative_dispatch_failed",
                     "error": f"{type(exc).__name__}: {exc}"})
+        return
+    d.prec.add_segment("device", d.t_issue, d.t_issued)
+    strip_block_identity(d.prec.record, segments=True)
 
 
 class Miner:
@@ -149,6 +201,14 @@ class Miner:
         if pipeline is None:
             pipeline = os.environ.get("MPIBT_PIPELINE", "1") != "0"
         self.pipeline = pipeline
+        # The block's own pipeline records, handed to the critical-path
+        # observation after the block (no scan of the profiler's ring).
+        self._trace_records: list[dict] = []
+        # Discarded sweeps that reached the card, drained once done at a
+        # later consume (``_drain_card``), and the end of the newest card
+        # window on the host's perf_counter clock (``_card_window``).
+        self._draining: list[_SweepDispatch] = []
+        self._card_end = 0.0
 
     def search_windows(self):
         """The ascending ``(start, end)`` nonce windows each candidate
@@ -188,24 +248,39 @@ class Miner:
         backend = self.backend.name
         t0 = time.perf_counter()
         tried = 0
-        with span("miner.block", height=height):
+        # The block's own dispatch records, for the observation in
+        # mine_chain (the checkpoint seam's segment_on_last lands in the
+        # newest of these same dicts).
+        self._trace_records = trace_records = []
+        with trace_block(height), span("miner.block", height=height):
             for extra_nonce in range(MAX_EXTRA_NONCE + 1):
-                cand = self.node.make_candidate(
-                    extend_payload(data, extra_nonce))
-                res = None
-                with span("miner.sweep", height=height,
-                          extra_nonce=extra_nonce):
-                    # Windows ascend, so the first one holding a
-                    # qualifier yields the lowest nonce in this miner's
-                    # space.
-                    for w_start, w_end in self.search_windows():
-                        res = self.backend.search(
-                            cand, self.config.difficulty_bits,
-                            start_nonce=w_start, max_count=w_end - w_start)
-                        self._count_sweep(backend, res.hashes_tried)
-                        tried += res.hashes_tried
-                        if res.nonce is not None:
-                            break
+                # One dispatch record per sweep: in this synchronous loop
+                # the device window is the search call. The frame is
+                # re-entered per template so rollover candidates stay
+                # apart in the per-block join.
+                with trace_block(height, template=extra_nonce):
+                    prec = profiler().dispatch(kind="sweep", height=height,
+                                               backend=backend)
+                    trace_records.append(prec.record)
+                    with prec.segment("enqueue"):
+                        cand = self.node.make_candidate(
+                            extend_payload(data, extra_nonce))
+                    res = None
+                    with span("miner.sweep", height=height,
+                              extra_nonce=extra_nonce), \
+                            prec.segment("device"):
+                        # Windows ascend, so the first one holding a
+                        # qualifier yields the lowest nonce in this
+                        # miner's space.
+                        for w_start, w_end in self.search_windows():
+                            res = self.backend.search(
+                                cand, self.config.difficulty_bits,
+                                start_nonce=w_start,
+                                max_count=w_end - w_start)
+                            self._count_sweep(backend, res.hashes_tried)
+                            tried += res.hashes_tried
+                            if res.nonce is not None:
+                                break
                 if res is None:
                     raise RuntimeError(
                         "search_windows yielded no nonce windows")
@@ -220,8 +295,11 @@ class Miner:
                     f"{self.config.difficulty_bits} is unsatisfiably high")
             wall_ms = (time.perf_counter() - t0) * 1e3
             res = dataclasses.replace(res, hashes_tried=tried)
-            with span("miner.append", height=height):
-                accepted = self.node.submit(core.set_nonce(cand, res.nonce))
+            with prec.segment("validate"):
+                winner = core.set_nonce(cand, res.nonce)
+            with span("miner.append", height=height), \
+                    prec.segment("append"):
+                accepted = self.node.submit(winner)
         if not accepted:
             raise RuntimeError(f"backend returned invalid block at {height}")
         rec = BlockRecord(height=height, nonce=res.nonce,
@@ -262,8 +340,10 @@ class Miner:
                    on_block: Callable[[BlockRecord], None] | None = None
                    ) -> list[BlockRecord]:
         """Mines n_blocks on top of the current tip. ``on_block`` runs
-        after each append (in the pipelined driver, while the next block's
-        sweep is already issued)."""
+        after each append, inside the block's trace frame (in the
+        pipelined driver, while the next block's sweep is already issued);
+        the block's critical path is observed after it, so a checkpoint
+        segment it times counts toward the block."""
         n = n_blocks if n_blocks is not None else self.config.n_blocks
         if self.pipeline and n > 0:
             return self._mine_chain_pipelined(n, on_block)
@@ -272,33 +352,48 @@ class Miner:
             rec = self.mine_block()
             records.append(rec)
             if on_block is not None:
-                on_block(rec)
+                with trace_block(rec.height):
+                    on_block(rec)
+            observe_block_metrics(rec.height, records=self._trace_records)
         return records
 
     # ---- the double-buffered pipeline -------------------------------------
 
     def _issue_sweep(self, height: int, template: int,
                      windows: _WindowSet, w_idx: int,
-                     cand_fn: Callable[[], bytes]) -> _SweepDispatch:
-        """Issues one sweep through the backend's ``search_async`` seam."""
+                     cand_fn: Callable[[], bytes],
+                     backend_name: str) -> _SweepDispatch:
+        """Issues one sweep through the backend's ``search_async`` seam.
+        The candidate build and the issue call are the ``enqueue``
+        segment; the device window is recorded at the consume, from the
+        sweep's timing events, which only a traced issue asks for."""
         w_start, w_end = windows.get(w_idx)
-        d = _SweepDispatch(height, template, w_idx, (w_start, w_end),
-                           cand_fn())
-        d.future = self.backend.search_async(
-            d.cand, self.config.difficulty_bits, start_nonce=w_start,
-            max_count=w_end - w_start)
+        with trace_block(height, template=template):
+            prec = profiler().dispatch(kind="sweep", height=height,
+                                       backend=backend_name)
+            with prec.segment("enqueue"), \
+                    timed_launches(not telemetry_disabled()):
+                d = _SweepDispatch(height, template, w_idx,
+                                   (w_start, w_end), cand_fn(), prec)
+                d.t_issue = prec.now()
+                d.future = self.backend.search_async(
+                    d.cand, self.config.difficulty_bits,
+                    start_nonce=w_start, max_count=w_end - w_start)
+                d.t_issued = prec.now()
+                d.sync = d.future.done()
         return d
 
-    @staticmethod
-    def _consume(d: _SweepDispatch):
+    def _consume(self, d: _SweepDispatch):
         """Blocks on one dispatch's result, strictly in issue order (the
         lowest-nonce rule), bounded by ``MPIBT_DISPATCH_TIMEOUT`` so that a
         wedged sweep surfaces as a loud failure instead of a silent hang.
         The resilient backend's future polls the sweep on the card against
-        the deadline, then reads it back on this thread."""
+        the deadline, then reads it back on this thread. Records the
+        dispatch's device window with its own block identity."""
         with span("miner.sweep", height=d.height, extra_nonce=d.template):
+            t_wait = d.prec.now()
             try:
-                return d.future.result(timeout=DISPATCH_TIMEOUT_S)
+                res = d.future.result(timeout=DISPATCH_TIMEOUT_S)
             except concurrent.futures.TimeoutError:
                 if d.future.done():
                     # The sweep itself raised a TimeoutError (the classes
@@ -311,21 +406,90 @@ class Miner:
                     f"returned nothing within {DISPATCH_TIMEOUT_S}s "
                     f"(MPIBT_DISPATCH_TIMEOUT) — treating the backend as "
                     f"hung") from None
+            t_done = d.prec.now()
+        if telemetry_disabled():
+            return res
+        # Sweeps on the card finish in issue order: every discarded one
+        # issued before this one is done now too.
+        self._drain_card()
+        t0, t1 = self._device_window(d, t_wait, t_done)
+        with trace_block(d.height, template=d.template):
+            d.prec.add_segment("device", t0, t1)
+        return res
+
+    def _device_window(self, d: _SweepDispatch, t_wait: float,
+                       t_done: float) -> tuple[float, float]:
+        """A consumed dispatch's device window on the profiler's clock:
+        from the card's events when its result came from the sweep it
+        launched on the card, else the call that did the work (the issue
+        call of a synchronous ``search_async``, else the consume)."""
+        if d.sync:
+            return d.t_issue, d.t_issued
+        sweep = getattr(d.future, "sweep", None)
+        if sweep is not None and sweep.timed and d.future.from_launch:
+            return self._card_window(d.prec, *sweep.timing())
+        return t_wait, t_done
+
+    def _card_window(self, prec, launched: float,
+                     device_s: float) -> tuple[float, float]:
+        """The window of a sweep launched at ``launched`` (perf_counter)
+        that ran ``device_s`` on the card, on the profiler's clock. Sweeps
+        on one stream run in order, so it opens when it was launched or
+        when the previous window closed, whichever is later. Windows are
+        taken in launch order."""
+        start = max(launched, self._card_end)
+        self._card_end = start + device_s
+        return prec.at(start), prec.at(self._card_end)
+
+    def _drain_card(self) -> None:
+        """Records the device windows of discarded sweeps that ran on the
+        card and are done, identity stripped: their work stays visible as
+        unattributed, never merged into a block a live dispatch mines. One
+        not done yet waits for a later drain (nothing here waits for the
+        card); one whose sweep failed is an event a post-mortem can see,
+        as for any discarded dispatch."""
+        keep = []
+        for d in sorted(self._draining, key=lambda d: d.t_issue):
+            sweep = d.future.sweep
+            try:
+                if not sweep.ready():
+                    keep.append(d)
+                    continue
+                window = self._card_window(d.prec, *sweep.timing())
+            except KernelError as e:
+                emit_event({"event": "speculative_dispatch_failed",
+                            "error": f"{type(e).__name__}: {e}"})
+                continue
+            d.prec.add_segment("device", *window)
+            strip_block_identity(d.prec.record, segments=True)
+        self._draining = keep
 
     @staticmethod
-    def _discard_speculative(pending, reason: str) -> None:
+    def _discard_speculative(pending, reason: str) -> list:
         """Discards every still-queued speculative dispatch, counted by
         ``reason``: a ``winner``, a ``restripe`` (the block boundary's
         template or window set changed) or an ``error`` falsified the
-        assumption they were issued under."""
+        assumption they were issued under. Their records lose their block
+        identity; one that already ran in its issue call keeps that
+        window as unattributed work. Returns those whose sweep is on the
+        card with its timing events, which the caller drains at a later
+        consume (``_drain_card``), unattributed too."""
+        on_card = []
         while pending:
             d = pending.popleft()
             counter("speculative_discards_total",
                     help="speculative pipeline dispatches discarded "
                          "before consumption, by reason",
                     reason=reason).inc()
+            strip_block_identity(d.prec.record, segments=True)
+            sweep = getattr(d.future, "sweep", None)
             if not d.future.cancel():
-                d.future.add_done_callback(_drain_discarded)
+                d.future.add_done_callback(
+                    functools.partial(_drain_discarded, d))
+            elif sweep is not None and sweep.timed and \
+                    not telemetry_disabled():
+                on_card.append(d)
+        return on_card
 
     def _candidate(self, cands: dict, data: bytes, template: int) -> bytes:
         cand = cands.get(template)
@@ -370,10 +534,23 @@ class Miner:
                 self._finalize_block(rec, backend)
                 records.append(rec)
                 if on_block is not None:
-                    on_block(rec)
+                    # In the block's frame: a checkpoint segment joins the
+                    # block that paid it, while the next block's sweep is
+                    # already on the card.
+                    with trace_block(rec.height):
+                        on_block(rec)
+                observe_block_metrics(rec.height,
+                                      records=self._trace_records)
         except BaseException:
+            # The still-queued speculation must not leave block
+            # identities on records of work that will be re-issued.
             self._discard_speculative(pending, "error")
+            self._draining = []
             raise
+        # Discarded sweeps still on the card stay unrecorded: waiting for
+        # them would add their card time to the chain's wall.
+        self._drain_card()
+        self._draining = []
         return records
 
     def _pipeline_block(self, blocks_left: int, pending, backend: str):
@@ -390,7 +567,8 @@ class Miner:
         cands: dict[int, bytes] = {}
         if pending and not self._speculation_valid(pending, windows,
                                                    cands, data):
-            self._discard_speculative(pending, "restripe")
+            self._draining += self._discard_speculative(pending,
+                                                        "restripe")
 
         # The sweep cursor: the (template, window) the next issued dispatch
         # covers. None = blocked at a template boundary that a 1-window
@@ -405,15 +583,20 @@ class Miner:
         cursor = ((0, 0) if not pending
                   else advance(pending[-1].template,
                                pending[-1].window_index))
+        self._trace_records = trace_records = [d.prec.record
+                                               for d in pending]
         tried = 0
-        with span("miner.block", height=height):
+        with trace_block(height), span("miner.block", height=height):
             while True:
                 while cursor is not None and \
                         len(pending) < self.PIPELINE_DEPTH:
                     e, w = cursor
-                    pending.append(self._issue_sweep(
+                    d = self._issue_sweep(
                         height, e, windows, w,
-                        lambda e=e: self._candidate(cands, data, e)))
+                        lambda e=e: self._candidate(cands, data, e),
+                        backend)
+                    pending.append(d)
+                    trace_records.append(d.prec.record)
                     cursor = advance(e, w)
                 d = pending.popleft()
                 r = self._consume(d)
@@ -441,19 +624,24 @@ class Miner:
                         cursor = (d.template + 1, 0)
             res = dataclasses.replace(res, hashes_tried=tried)
             # A winner falsifies every queued no-winner speculation.
-            self._discard_speculative(pending, "winner")
+            self._draining += self._discard_speculative(pending, "winner")
             if blocks_left > 1:
                 # Issue the next block's first sweep from the winner's
                 # digest, the prev_hash the C++ append is about to
                 # install; it is re-validated at the next block boundary.
                 nh, ndata = height + 1, self.payload_for(height + 1)
-                pending.append(self._issue_sweep(
+                nd = self._issue_sweep(
                     nh, 0, windows, 0,
                     lambda: core.make_candidate_header(
-                        res.hash, ndata, nh, self.config.difficulty_bits)))
-            with span("miner.append", height=height):
-                accepted = self.node.submit(
-                    core.set_nonce(win_d.cand, res.nonce))
+                        res.hash, ndata, nh, self.config.difficulty_bits),
+                    backend)
+                pending.append(nd)
+                trace_records.append(nd.prec.record)
+            with win_d.prec.segment("validate"):
+                winner = core.set_nonce(win_d.cand, res.nonce)
+            with span("miner.append", height=height), \
+                    win_d.prec.segment("append"):
+                accepted = self.node.submit(winner)
         if not accepted:
             self._discard_speculative(pending, "error")
             raise RuntimeError(f"backend returned invalid block at {height}")

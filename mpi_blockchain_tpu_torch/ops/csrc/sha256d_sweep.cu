@@ -693,6 +693,34 @@ int sha256d_sweep_launch(const uint32_t* ext, unsigned long long base,
            : launch_mode<false, false>(d, args, o, n, s);
 }
 
+// The same sweep (not the measuring build) between two timing events,
+// recorded on `stream` right before and right after it in this one call:
+// once it is done, sha256d_event_elapsed_ms gives the sweep's own time on
+// the card. `start` and `end` are cudaEvent_t, created with timing on the
+// stream's device.
+int sha256d_sweep_launch_timed(const uint32_t* ext, unsigned long long base,
+                               unsigned long long count, int difficulty_bits,
+                               int early_exit, void* out, void* stream,
+                               void* start, void* end) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t before =
+      cudaEventRecord(static_cast<cudaEvent_t>(start), s);
+  if (before != cudaSuccess) return static_cast<int>(before);
+  const int err = sha256d_sweep_launch(ext, base, count, difficulty_bits,
+                                       early_exit, out, nullptr, stream);
+  if (err != 0) return err;
+  return static_cast<int>(
+      cudaEventRecord(static_cast<cudaEvent_t>(end), s));
+}
+
+// Milliseconds between two timing events that are done, into *ms; returns
+// the CUDA error code (cudaErrorNotReady while either is still pending).
+int sha256d_event_elapsed_ms(void* start, void* end, float* ms) {
+  return static_cast<int>(
+      cudaEventElapsedTime(ms, static_cast<cudaEvent_t>(start),
+                           static_cast<cudaEvent_t>(end)));
+}
+
 // The same sweep with the 20 ext words in device memory: enqueues their
 // copy into kExtSymbol, then the kExtFromSymbol instantiation.
 int sha256d_sweep_launch_ext_symbol(const uint32_t* ext_device,

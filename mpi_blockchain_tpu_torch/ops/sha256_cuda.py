@@ -27,12 +27,14 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
 import torch
 
 from ..config import ConfigError, KernelError
 from ..core.build import BUILD_DIR, build_log, build_shared
+from ..dispatchwatch import record_compile
 from . import sha256_sched, sha256_torch
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "sha256d_sweep.cu"
@@ -47,6 +49,9 @@ SLICE_NONCES = 32
 NONCES_PER_TRIP = 1
 #: int32 words of a result buffer: {count, min, cursor_lo, cursor_hi}.
 RESULT_WORDS = 4
+
+#: The compile census's site of the library's builds and loads.
+COMPILE_SITE = "ops.sha256_cuda"
 
 #: Kernel launches so far. ``launch`` adds one per launch and nothing else
 #: touches it, so a caller can zero it, run a path and read it back.
@@ -69,14 +74,18 @@ def find_nvcc() -> str | None:
 
 
 def build() -> pathlib.Path:
-    """Compiles the kernel library if it is missing or out of date."""
+    """Compiles the kernel library if it is missing or out of date; a
+    compile that ran is one ``nvcc`` stage in the compile census
+    (``dispatchwatch``)."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise KernelError(
             "nvcc not found (looked in $CUDA_HOME/bin, PyTorch's CUDA_HOME "
             "and PATH): the CUDA sweep kernel cannot be built")
     return build_shared([nvcc, *NVCC_FLAGS], [SOURCE], [],
-                        BUILD_DIR / "libsha256d_sweep.so")
+                        BUILD_DIR / "libsha256d_sweep.so",
+                        on_build=lambda s: record_compile(
+                            site=COMPILE_SITE, stage="nvcc", duration_s=s))
 
 
 def bind(library: pathlib.Path) -> ctypes.CDLL:
@@ -86,6 +95,14 @@ def bind(library: pathlib.Path) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.sha256d_sweep_launch.restype = ctypes.c_int
+    lib.sha256d_sweep_launch_timed.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.sha256d_sweep_launch_timed.restype = ctypes.c_int
+    lib.sha256d_event_elapsed_ms.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+    lib.sha256d_event_elapsed_ms.restype = ctypes.c_int
     lib.sha256d_sweep_launch_ext_symbol.argtypes = [
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -119,7 +136,12 @@ def bind(library: pathlib.Path) -> ctypes.CDLL:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return bind(build())
+    path = build()
+    t0 = time.perf_counter()
+    lib = bind(path)
+    record_compile(site=COMPILE_SITE, stage="load",
+                   duration_s=time.perf_counter() - t0)
+    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -217,7 +239,8 @@ def check_device_words(t: torch.Tensor, shape: tuple, device: torch.device,
 def launch(ext, base: int, count: int,
            difficulty_bits: int, out: torch.Tensor, *,
            early_exit: bool = False,
-           hashed: torch.Tensor | None = None) -> None:
+           hashed: torch.Tensor | None = None,
+           events: tuple | None = None) -> None:
     """Enqueues one sweep of [base, base + count) on the current stream of
     ``out``'s device, accumulating into ``out`` (see ``new_result``; the
     caller resets it). Does not synchronise.
@@ -231,7 +254,12 @@ def launch(ext, base: int, count: int,
     ``hashed``, a (1,) int64 tensor on the same device, selects the
     measuring build of the kernel, which adds to it the number of nonces it
     hashed (with ``early_exit``, how far the sweep ran past the winner);
-    only with ``ext`` in host memory."""
+    only with ``ext`` in host memory. ``events``, a pair of timing
+    ``torch.cuda.Event`` already created on the device (recorded once), are
+    recorded on the stream right before and right after the kernel, in the
+    library's call that launches it, so the time between them is the
+    kernel's alone; only with ``ext`` in host memory and without
+    ``hashed``."""
     global launches
     if out.device.type != "cuda":
         raise ValueError("out must be a CUDA tensor")
@@ -242,6 +270,11 @@ def launch(ext, base: int, count: int,
         raise ValueError("hashed must be a (1,) int64 tensor on out's "
                          "device")
     on_device = isinstance(ext, torch.Tensor)
+    if events is not None and (on_device or hashed is not None
+                               or not all(e.cuda_event for e in events)):
+        raise ValueError("events time a launch with ext in host memory, "
+                         "not the measuring build, and must be created on "
+                         "the device first")
     if on_device:
         check_device_words(ext, (sha256_sched.EXT_WORDS,), out.device,
                             "ext")
@@ -265,11 +298,16 @@ def launch(ext, base: int, count: int,
                     ext.data_ptr(), base, count, int(difficulty_bits),
                     int(early_exit), out.data_ptr(), stream.cuda_stream)
         else:
-            err = _lib().sha256d_sweep_launch(
-                ext.ctypes.data, base, count, int(difficulty_bits),
-                int(early_exit), out.data_ptr(),
-                None if hashed is None else hashed.data_ptr(),
-                stream.cuda_stream)
+            args = (ext.ctypes.data, base, count, int(difficulty_bits),
+                    int(early_exit), out.data_ptr())
+            if events is None:
+                err = _lib().sha256d_sweep_launch(
+                    *args, None if hashed is None else hashed.data_ptr(),
+                    stream.cuda_stream)
+            else:
+                err = _lib().sha256d_sweep_launch_timed(
+                    *args, stream.cuda_stream, events[0].cuda_event,
+                    events[1].cuda_event)
     if err != 0:
         raise cuda_error("sha256d_sweep launch", err)
     launches += 1
@@ -336,16 +374,100 @@ class _FreshBuffers(threading.local):
 _fresh_buffers = _FreshBuffers()
 
 
+class _Timing(threading.local):
+    """Per thread: whether ``sweep_launch`` brackets sweeps with timing
+    events (``timed_launches``)."""
+    on = False
+
+
+_timing = _Timing()
+
+
+class timed_launches:
+    """``with timed_launches():`` on this thread, ``sweep_launch``
+    brackets each sweep with timing events, so ``LaunchedSweep.timing``
+    gives its time on the card; outside it a sweep carries one plain
+    completion event. Only a caller that reads the timing asks for it (the
+    pipelined ``Miner`` with its telemetry on), so no other launch holds a
+    pair. ``on=False`` turns it off inside."""
+
+    __slots__ = ("on", "prev")
+
+    def __init__(self, on: bool = True):
+        self.on = on
+
+    def __enter__(self) -> None:
+        self.prev, _timing.on = _timing.on, self.on
+
+    def __exit__(self, *exc) -> None:
+        _timing.on = self.prev
+
+
+def timing_requested() -> bool:
+    """True inside ``timed_launches`` on this thread."""
+    return _timing.on
+
+
+class _TimingPairs:
+    """Per device, the timing event pairs of sweeps that are gone. Making
+    and destroying a timing event costs the host several times what
+    recording one does, so a timed launch takes a pair from here (or makes
+    one) and its ``LaunchedSweep`` gives the pair back when nothing holds
+    the sweep any more: no sweep reads another's events, and the pool
+    holds at most as many pairs as timed sweeps were alive at once. The
+    lock is re-entrant, since the garbage collector may free a sweep
+    inside ``give``."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.free: dict[torch.device, list] = {}
+
+    def take(self, device: torch.device) -> tuple:
+        """A pair of timing events created on ``device``."""
+        with self.lock:
+            free = self.free.get(device)
+            if free:
+                return free.pop()
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        stream = torch.cuda.current_stream(device)
+        for event in pair:
+            event.record(stream)     # creates it on the device
+        return pair
+
+    def give(self, device: torch.device, pair: tuple) -> None:
+        with self.lock:
+            self.free.setdefault(device, []).append(pair)
+
+
+_timing_pairs = _TimingPairs()
+
+
 class LaunchedSweep:
-    """A sweep on the card: its result buffer, and an event recorded on its
-    stream right after the launch. ``ready`` says, without blocking,
-    whether the sweep is done; ``result`` waits for it and gives (count,
-    min_nonce). A CUDA error reported at either raises ``KernelError``."""
+    """A sweep on the card: its result buffer, the event recorded on its
+    stream right after it, and, when it was launched inside
+    ``timed_launches``, a timing event right before it and the host's
+    ``time.perf_counter()`` when it was launched (``timed``). ``ready``
+    says, without blocking, whether the sweep is done; ``result`` waits
+    for it and gives (count, min_nonce); ``timing`` gives (launched, its
+    seconds on the card) of a timed sweep that is done. A CUDA error
+    reported at any of them raises ``KernelError``."""
 
-    __slots__ = ("out", "event")
+    __slots__ = ("out", "event", "start", "launched", "device")
 
-    def __init__(self, out: torch.Tensor, event: torch.cuda.Event):
-        self.out, self.event = out, event
+    def __init__(self, out: torch.Tensor, event: torch.cuda.Event,
+                 start: torch.cuda.Event | None = None,
+                 launched: float = 0.0):
+        self.out, self.event, self.start = out, event, start
+        self.launched, self.device = launched, out.device
+
+    def __del__(self, _give=_timing_pairs.give):
+        if self.start is not None:
+            _give(self.device, (self.start, self.event))
+
+    @property
+    def timed(self) -> bool:
+        return self.start is not None
 
     def ready(self) -> bool:
         with kernel_errors("sha256d_sweep completion query"):
@@ -354,6 +476,19 @@ class LaunchedSweep:
     def result(self) -> tuple[int, int]:
         return read_result(self.out)
 
+    def timing(self) -> tuple[float, float]:
+        """Only once ``ready`` said True or ``result`` returned: the end
+        event is then done, and reading it does not wait."""
+        if self.start is None:
+            raise ValueError("the sweep was launched without timing "
+                             "events (see timed_launches)")
+        ms = ctypes.c_float()
+        err = _lib().sha256d_event_elapsed_ms(
+            self.start.cuda_event, self.event.cuda_event, ctypes.byref(ms))
+        if err != 0:
+            raise cuda_error("sha256d_sweep timing", err)
+        return self.launched, ms.value / 1e3
+
 
 def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
                  device: torch.device | str, early_exit: bool = False
@@ -361,7 +496,9 @@ def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
     """Enqueues one sweep of [base, base + count) on a CUDA ``device`` into
     a result buffer of its own and returns it as a ``LaunchedSweep``,
     without waiting: a sweep on the device while the host goes on;
-    ``sweep`` is both at once."""
+    ``sweep`` is both at once. Inside ``timed_launches`` a sweep of at
+    least one nonce is bracketed by timing events, so its time on the card
+    is known once it is done (the pipelined ``Miner``'s device window)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ConfigError(f"sweep_launch runs on a CUDA device, not "
@@ -373,11 +510,17 @@ def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
         device = torch.device("cuda", torch.cuda.current_device())
     with kernel_errors("sha256d_sweep launch"):
         out = _fresh_buffers.get(device).clone()
+        if not _timing.on or count <= 0:
+            launch(ext_host, base, count, difficulty_bits, out,
+                   early_exit=early_exit)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            return LaunchedSweep(out, event)
+        start, event = _timing_pairs.take(device)
+        launched = time.perf_counter()
         launch(ext_host, base, count, difficulty_bits, out,
-               early_exit=early_exit)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-    return LaunchedSweep(out, event)
+               early_exit=early_exit, events=(start, event))
+    return LaunchedSweep(out, event, start, launched)
 
 
 def sweep(ext, base: int, count: int, difficulty_bits: int, *,

@@ -41,6 +41,10 @@ def init_distributed(coordinator: str, num_processes: int,
                             world_size=num_processes, rank=process_id)
     global _joined
     _joined = True
+    # The rank stamp: every rank-labeled metric, block trace frame and
+    # pipeline record this process makes from here on carries it.
+    from ..telemetry import set_mesh_rank
+    set_mesh_rank(process_id)
 
 
 def shutdown_distributed() -> None:

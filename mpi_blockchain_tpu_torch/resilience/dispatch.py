@@ -245,7 +245,8 @@ class ResilientBackend(MinerBackend):
                 if not head.set_running_or_notify_cancel():
                     continue
                 try:
-                    head.set_result(self._resolve(head.launched, head.args))
+                    head.set_result(self._resolve(head.launched, head.args,
+                                                  head))
                 except Exception as e:   # delivered through the future
                     head.set_exception(e)
 
@@ -258,11 +259,13 @@ class ResilientBackend(MinerBackend):
         except Exception as e:
             return self._i, None, e
 
-    def _resolve(self, launched: tuple, args: tuple) -> SearchResult:
+    def _resolve(self, launched: tuple, args: tuple,
+                 dispatch: "_Dispatch | None" = None) -> SearchResult:
         """Finishes a started search under the retry budget of its rung,
         stepping down when the budget runs out. The started attempt is the
         first; a retry, or a search started on a rung since stepped down
-        from, runs in full on the active rung."""
+        from, runs in full on the active rung. A ``dispatch`` whose result
+        is the started attempt's is marked ``from_launch``."""
         with self._lock:
             while True:
                 label = self.rung
@@ -274,7 +277,10 @@ class ResilientBackend(MinerBackend):
                         _, finish, error = started
                         if error is not None:
                             raise error
-                        return self._checked(args, finish())
+                        res = self._checked(args, finish())
+                        if dispatch is not None:
+                            dispatch.from_launch = True
+                        return res
                     return self._checked(args, self._backend.search(*args))
 
                 try:
@@ -349,12 +355,16 @@ class _Dispatch(concurrent.futures.Future):
     (polled through the finish's ``ready``), so a wedged sweep raises
     ``TimeoutError`` instead of hanging the read-back. Cancelling it
     before then drops it (the started sweep runs out on the device
-    unread)."""
+    unread). ``sweep`` is the started sweep on the card (the
+    ``LaunchedSweep``, with its time there), or None; ``from_launch`` says
+    the result is that sweep's, not a retry's."""
 
     def __init__(self, backend: ResilientBackend, launched: tuple,
                  args: tuple):
         super().__init__()
         self.backend, self.launched, self.args = backend, launched, args
+        self.sweep = getattr(launched[1], "sweep", None)
+        self.from_launch = False
 
     def result(self, timeout=None):
         self.backend._finish_through(self, timeout)

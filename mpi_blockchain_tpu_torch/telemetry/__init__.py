@@ -8,9 +8,11 @@ registry (``registry``), host spans filed as ``span_seconds``
 causal logs (``causal``), the crash dump of all of these on an abnormal
 exit (``flight_recorder``, ``--flight-recorder`` on mine/sim/bench), a
 progress heartbeat gauge (``heartbeat_snapshot`` is what ``/healthz`` and
-the front door's accept gate read) and a Prometheus dump. The profiler capture and
-the rest of the observability wait for a later slice of the port. All of
-it is host-side and standard library only.
+the front door's accept gate read), this process's mesh rank
+(``set_mesh_rank``; ``blocktrace`` frames and ``meshwatch.pipeline``
+records carry it, ``rank_counter`` labels with it) and a Prometheus dump.
+The profiler capture waits for a later slice of the port. All of it is
+host-side and standard library only.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import pathlib
 from .causal import (CausalLog, LamportClock,  # noqa: F401
                      dump_causal_logs, load_causal_dump)
 from .events import clear_events, emit_event, recent_events  # noqa: F401
+from . import registry as _registry
 from .registry import (NULL_METRIC, Counter, Gauge,  # noqa: F401
                        Histogram, MetricError, Registry, default_registry,
                        reset, set_telemetry_disabled, telemetry_disabled)
@@ -27,8 +30,37 @@ from .registry import (NULL_METRIC, Counter, Gauge,  # noqa: F401
 def counter(name: str, help: str = "", **labels) -> Counter:
     """Get-or-create a counter on the default registry (the null metric
     while the kill switch is on)."""
+    if _registry._telemetry_off:
+        return NULL_METRIC
+    return _registry._default._get(Counter, name, help, labels)
+
+
+# ---- mesh-rank context ----------------------------------------------------
+# One rank id per process, stamped by whoever knows it first
+# (``parallel.distributed.init_distributed``). Per-rank metrics take their
+# ``rank`` label from it through ``rank_counter``.
+
+_mesh_rank: int = 0
+
+
+def set_mesh_rank(rank: int) -> None:
+    """Declares this process's mesh rank (0-based); ``rank_counter``
+    labels with it by default."""
+    global _mesh_rank
+    _mesh_rank = int(rank)
+
+
+def mesh_rank() -> int:
+    return _mesh_rank
+
+
+def rank_counter(name: str, help: str = "", rank: int | None = None,
+                 **labels) -> Counter:
+    """A counter labeled with the mesh rank (this process's by default)."""
     if telemetry_disabled():
         return NULL_METRIC
+    labels = dict(labels)
+    labels["rank"] = str(rank if rank is not None else mesh_rank())
     return default_registry().counter(name, help=help, **labels)
 
 
@@ -61,11 +93,13 @@ def heartbeat(name: str) -> Gauge:
     if not name.endswith("_heartbeat"):
         raise MetricError(f"heartbeat gauge {name!r} must end "
                           f"'_heartbeat'")
-    if telemetry_disabled():
+    if _registry._telemetry_off:
         return NULL_METRIC
-    return default_registry().gauge(
-        name, help="progress heartbeat (value: progress marker; "
-                   "last_set age: staleness)")
+    return _registry._default._get(Gauge, name, _HEARTBEAT_HELP, {})
+
+
+_HEARTBEAT_HELP = ("progress heartbeat (value: progress marker; last_set "
+                   "age: staleness)")
 
 
 def heartbeat_snapshot(registry: Registry | None = None) -> dict:

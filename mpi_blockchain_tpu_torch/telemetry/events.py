@@ -9,9 +9,10 @@ log output; ``MPIBT_EVENT_BUFFER`` sets the ring's size (default 2048).
 Each ringed record is paired with a process-lifetime sequence number, the
 cursor of perfwatch's ``/events?since=SEQ``.
 
-The port's copy of the reference's ``telemetry/events.py``. The reference
-stamps each record with the block it belongs to (blocktrace); blocktrace
-is not ported, so records carry no ``trace`` field here.
+The port's copy of the reference's ``telemetry/events.py``. Inside a
+``blocktrace.trace_block`` scope each record is stamped with the block it
+belongs to (a ``trace`` field), and with ``MPIBT_TELEMETRY_OFF`` nothing
+is emitted, as in the reference.
 """
 from __future__ import annotations
 
@@ -68,9 +69,24 @@ def get_logger() -> logging.Logger:
 
 
 def emit_event(record: dict) -> None:
-    """Emits one structured event as a JSON line (INFO) and rings it."""
+    """Emits one structured event as a JSON line (INFO) and rings it.
+
+    Inside a ``blocktrace.trace_block`` scope the record is stamped with a
+    ``trace`` dict (height/template/rank) unless it already carries one,
+    so retry, degradation and checkpoint events join the block that paid
+    for them. With ``MPIBT_TELEMETRY_OFF`` the event is dropped (the
+    overhead audit's off leg)."""
+    from ..blocktrace.context import trace_dict
+    from .registry import telemetry_disabled
+
     global _seq
+    if telemetry_disabled():
+        return
     record = dict(record)
+    if "trace" not in record:
+        trace = trace_dict()
+        if trace is not None:
+            record["trace"] = trace
     with _lock:
         _seq += 1
         _ring.append((_seq, dict(record)))

@@ -60,6 +60,9 @@ class MetricError(ValueError):
 
 
 def _label_items(labels: dict) -> LabelItems:
+    if len(labels) <= 1:
+        # The common case on the hot path, without a sort.
+        return tuple((str(k), str(v)) for k, v in labels.items())
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
@@ -220,7 +223,9 @@ class Histogram(_Metric):
             if len(self._reservoir) < self._cap:
                 self._reservoir.append(value)
             else:
-                j = self._rng.randrange(self._count)
+                # randrange(count) for count > 0, without its argument
+                # checks: the same draw from the same generator.
+                j = self._rng._randbelow(self._count)
                 if j < self._cap:
                     self._reservoir[j] = value
 
@@ -327,8 +332,29 @@ class Registry:
         self._lock = threading.Lock()
         self._metrics: dict[tuple[str, LabelItems], _Metric] = {}
         self._spans = collections.deque(maxlen=SPAN_LOG_SIZE)
+        # The hot path's lookups by call-site spelling (kind, name, the
+        # labels as given), in front of the canonical key; read without
+        # the lock (a dict read is atomic), filled on a miss.
+        self._by_call: dict[tuple, _Metric] = {}
+        self._span_hists: dict[str, Histogram] = {}
 
     def _get(self, cls, name: str, help: str, labels: dict, **kwargs):
+        try:
+            call = (cls, name, tuple(labels.items()))
+            m = self._by_call.get(call)
+        except TypeError:           # an unhashable label value
+            call = m = None
+        if m is not None:
+            if help and not m.help:
+                m.help = help
+            return m
+        m = self._get_canonical(cls, name, help, labels, **kwargs)
+        if call is not None:
+            self._by_call[call] = m
+        return m
+
+    def _get_canonical(self, cls, name: str, help: str, labels: dict,
+                       **kwargs):
         key = (name, _label_items(labels))
         with self._lock:
             m = self._metrics.get(key)
@@ -359,9 +385,12 @@ class Registry:
         """Files a finished span: kept in the bounded log and mirrored as
         a ``span_seconds`` summary labeled by span name."""
         self._spans.append(span)
-        self.histogram("span_seconds",
-                       help="wall-clock seconds per telemetry span",
-                       span=span.name).observe(span.duration_s)
+        hist = self._span_hists.get(span.name)
+        if hist is None:
+            hist = self._span_hists[span.name] = self.histogram(
+                "span_seconds", help="wall-clock seconds per telemetry span",
+                span=span.name)
+        hist.observe(span.duration_s)
 
     def spans(self, name: str | None = None) -> list:
         out = list(self._spans)

@@ -34,12 +34,13 @@ import sys
 import threading
 import time
 
-from .registry import Registry, default_registry, telemetry_disabled
+from . import registry as _registry
+from .registry import Registry
 
 _tls = threading.local()
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(slots=True)
 class Span:
     name: str
     parent: str | None = None
@@ -71,34 +72,69 @@ def active_span() -> Span | None:
     return stack[-1] if stack else None
 
 
+#: What ``_profiler_range`` gives while no profiler records: one shared
+#: null context, which a span neither enters nor leaves.
+_NO_RANGE = contextlib.nullcontext()
+
+
+#: ``torch.autograd.profiler`` once torch is imported (its
+#: ``_is_profiler_enabled`` says whether a profiler records).
+_autograd_profiler = None
+
+
 def _profiler_range(name: str):
     """``torch.profiler.record_function(name)`` while PyTorch's profiler is
     recording, else a null context. Only a process that imported torch
     can be profiling, so nothing is imported here."""
-    torch = sys.modules.get("torch")
-    if torch is None or not getattr(torch.autograd.profiler,
-                                    "_is_profiler_enabled", False):
-        return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
+    global _autograd_profiler
+    if _autograd_profiler is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return _NO_RANGE
+        _autograd_profiler = torch.autograd.profiler
+    if not getattr(_autograd_profiler, "_is_profiler_enabled", False):
+        return _NO_RANGE
+    return sys.modules["torch"].profiler.record_function(name)
 
 
-@contextlib.contextmanager
-def span(name: str, registry: Registry | None = None, **attrs):
-    """Context manager timing one named host-side operation."""
-    if telemetry_disabled():
-        # No clock reads, no stack push, nothing filed.
-        yield _NULL_SPAN
-        return
-    stack = _stack()
-    parent = stack[-1].name if stack else None
-    s = Span(name=name, parent=parent, depth=len(stack), attrs=attrs)
-    stack.append(s)
-    t0 = time.perf_counter()
-    try:
-        with _profiler_range(name):
-            yield s
-    finally:
-        s.duration_s = time.perf_counter() - t0
-        stack.pop()
-        (registry if registry is not None
-         else default_registry()).record_span(s)
+class span:
+    """Context manager timing one named host-side operation: ``with
+    span(name, **attrs) as s:``. A class, not a generator: it runs
+    several times a block."""
+
+    __slots__ = ("_name", "_registry", "_attrs", "_span", "_t0", "_range",
+                 "_stack")
+
+    def __init__(self, name: str, registry: Registry | None = None,
+                 **attrs):
+        self._name, self._registry, self._attrs = name, registry, attrs
+        self._span = None
+
+    def __enter__(self) -> Span:
+        if _registry._telemetry_off:
+            # No clock reads, no stack push, nothing filed.
+            return _NULL_SPAN
+        stack = self._stack = _stack()
+        s = self._span = Span(self._name, stack[-1].name if stack else None,
+                              len(stack), self._attrs)
+        stack.append(s)
+        r = self._range = _profiler_range(self._name)
+        self._t0 = time.perf_counter()
+        if r is not _NO_RANGE:
+            r.__enter__()
+        return s
+
+    def __exit__(self, *exc) -> bool:
+        s = self._span
+        if s is None:
+            return False
+        try:
+            if self._range is not _NO_RANGE:
+                self._range.__exit__(*exc)
+        finally:
+            s.duration_s = time.perf_counter() - self._t0
+            self._stack.pop()
+            self._span = None
+            (self._registry if self._registry is not None
+             else _registry._default).record_span(s)
+        return False

@@ -1,8 +1,8 @@
-"""Times the d24/n1000 pipelined ``Miner`` of two checkouts of the port in
-turns on one NVIDIA GPU: what a change to the per-block path costs.
+"""Times a workload of two checkouts of the port in turns on one NVIDIA
+GPU: what a change to the per-block path, or to the launch, costs.
 
     python -m mpi_blockchain_tpu_torch.tools.tree_turns PARENT_DIR CHANGE_DIR \\
-        [--rounds 2]
+        [--rounds 2] [--workload miner|sim|overhead]
 
 Each round runs the two trees in the order A, B, B, A (A the first tree),
 each run in a process of its own started in that tree's directory, so
@@ -11,9 +11,23 @@ a short d20/n10 chain to warm the card and the process, resets the
 telemetry, then mines d24/n1000 at 2^24 behind ``ResilientBackend`` with
 ``chip_smoke.mine_timed`` (CUDA events around every sweep launch) and
 prints its wall, sweeps, host time a block (wall minus sweeps, over the
-blocks) and the spans a block (``chip_smoke.span_ms_per_block``). Both
-trees must end at the same tip. The last line is one JSON object with
-every run, the medians per tree, and the card's name and power limit.
+blocks) and the spans a block (``chip_smoke.span_ms_per_block``).
+
+``--workload sim`` times config 5 instead, ``sim --preset adversarial``
+through the port's CLI (``chip_smoke.sim_run``: a launch a search), after
+a warming run, then the same chain on the C++ sweep (``--backend cpu``),
+which has no device and so shows the host's own pace in that turn; it
+prints both walls and the host time a search (wall over searches).
+
+``--workload overhead`` reads the trace-overhead audit instead
+(``blocktrace.overhead.measure_trace_overhead`` on the card, its defaults:
+three repetitions of a second of paired 2^24 sweep rounds, instrumented
+against ``MPIBT_TELEMETRY_OFF``) and prints its ``overhead_pct``.
+
+Both trees must end at the same tip (the audit mines none). The last line is one JSON object with
+every run, the medians per tree, and the card's name and power limit. The
+environment passes through, so ``MPIBT_TELEMETRY_OFF=1`` in it times both
+trees with their telemetry off.
 """
 from __future__ import annotations
 
@@ -49,10 +63,69 @@ run["span_ms_per_block"] = chip_smoke.span_ms_per_block(1000)
 print(json.dumps(run))
 """
 
+_SIM = """
+import json, sys, tempfile
+sys.path.insert(0, ".")
+import chip_smoke
+from mpi_blockchain_tpu_torch.core.build import ensure_built
+from mpi_blockchain_tpu_torch.ops import sha256_cuda
 
-def run_tree(tree: pathlib.Path) -> dict:
-    """One timed run in ``tree``'s own process."""
-    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tree,
+sha256_cuda.build()
+ensure_built()
+with tempfile.TemporaryDirectory() as tmp:
+    chip_smoke.sim_run(["--preset", "adversarial"], tmp, "warm")
+    run = chip_smoke.sim_run(["--preset", "adversarial"], tmp, "preset")
+    cpp = chip_smoke.sim_run(["--difficulty", "16", "--blocks", "20",
+                              "--backend", "cpu"], tmp, "cpp")
+searches = 2 * run["summary"]["steps"]
+print(json.dumps({
+    "wall_s": run["wall_s"], "launches": run["launches"],
+    "host_ms_per_search": 1e3 * run["wall_s"] / searches,
+    "dispatch_ms_per_search": 1e3 * run["dispatch_s"] / searches,
+    "cpp_wall_s": cpp["wall_s"],
+    "cpp_ms_per_search": 1e3 * cpp["wall_s"] / searches,
+    "tip_hash": [(r["summary"]["tips"], r["dump_sha256"])
+                 for r in (run, cpp)]}))
+"""
+
+_OVERHEAD = """
+import json, sys
+sys.path.insert(0, ".")
+from mpi_blockchain_tpu_torch.blocktrace.overhead import \\
+    measure_trace_overhead
+from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+sha256_cuda.build()
+run = measure_trace_overhead(device="cuda")
+run["tip_hash"] = None
+print(json.dumps(run))
+"""
+
+#: Per workload: the script run in each tree, the keys whose medians are
+#: printed, and the line printed for each run.
+WORKLOADS = {
+    "miner": (_RUN, ("wall_s", "kernel_s", "host_ms_per_block"),
+              lambda run: (
+                  f"wall {run['wall_s']:.6f} s, sweeps "
+                  f"{run['kernel_s']:.6f} s, host "
+                  f"{run['host_ms_per_block']:.4f} ms a block, spans "
+                  f"{ {k: round(v, 6) for k, v in run['span_ms_per_block'].items()} }")),
+    "sim": (_SIM, ("wall_s", "host_ms_per_search", "cpp_wall_s"),
+            lambda run: (
+                f"wall {run['wall_s']:.6f} s, {run['launches']} launches, "
+                f"host {run['host_ms_per_search']:.6f} ms a search "
+                f"(dispatch {run['dispatch_ms_per_search']:.6f}); C++ "
+                f"sweep wall {run['cpp_wall_s']:.6f} s")),
+    "overhead": (_OVERHEAD, ("overhead_pct",),
+                 lambda run: (
+                     f"overhead {run['overhead_pct']}% (repetitions "
+                     f"{run['all_overhead_pct']}), {run['pairs']} pairs")),
+}
+
+
+def run_tree(tree: pathlib.Path, script: str = _RUN) -> dict:
+    """One timed run of ``script`` in ``tree``'s own process."""
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tree,
                           capture_output=True, text=True, check=True,
                           timeout=600)
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -64,7 +137,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("trees", nargs=2, type=pathlib.Path,
                         help="two checkouts of the repo (A, then B)")
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--workload", choices=sorted(WORKLOADS),
+                        default="miner")
     args = parser.parse_args(argv)
+    script, keys, describe = WORKLOADS[args.workload]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -74,20 +150,16 @@ def main(argv: list[str] | None = None) -> int:
     runs: dict[str, list] = {str(a): [], str(b): []}
     for r in range(args.rounds):
         for tree in (a, b, b, a):
-            run = run_tree(tree)
+            run = run_tree(tree, script)
             runs[str(tree)].append(run)
-            print(f"round {r} {tree.name}: wall {run['wall_s']:.6f} s, "
-                  f"sweeps {run['kernel_s']:.6f} s, host "
-                  f"{run['host_ms_per_block']:.4f} ms a block, spans "
-                  f"{ {k: round(v, 6) for k, v in run['span_ms_per_block'].items()} }",
-                  flush=True)
-    tips = {run["tip_hash"] for rs in runs.values() for run in rs}
+            print(f"round {r} {tree.name}: {describe(run)}", flush=True)
+    tips = {json.dumps(run["tip_hash"]) for rs in runs.values()
+            for run in rs}
     if len(tips) != 1:
         print(f"tree_turns: FAIL: the runs end at {tips}", file=sys.stderr)
         return 1
     medians = {tree: {key: statistics.median(r[key] for r in rs)
-                      for key in ("wall_s", "kernel_s",
-                                  "host_ms_per_block")}
+                      for key in keys}
                for tree, rs in runs.items()}
     for tree, m in medians.items():
         print(f"median {pathlib.Path(tree).name}: {m}", flush=True)

@@ -7,6 +7,7 @@ import hashlib
 import io
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -386,6 +387,53 @@ def test_tree_turns_runs_only_helpers_every_tree_has():
     compile(tree_turns._RUN, "tree_turns._RUN", "exec")
 
 
+def test_tree_turns_sim_runs_only_helpers_every_tree_has():
+    """The config 5 workload runs ``chip_smoke.sim_run``, which the trees
+    since the simulation's port have too."""
+    from mpi_blockchain_tpu_torch.tools import tree_turns
+
+    script, keys, describe = tree_turns.WORKLOADS["sim"]
+    assert "chip_smoke.sim_run(" in script
+    assert callable(chip_smoke.sim_run)
+    compile(script, "tree_turns._SIM", "exec")
+    assert "host_ms_per_search" in keys
+    line = describe({"wall_s": 1.5, "launches": 4346,
+                     "host_ms_per_search": 0.345, "cpp_wall_s": 1.1,
+                     "dispatch_ms_per_search": 0.2})
+    assert "4346 launches" in line and "0.345000 ms a search" in line
+
+
+def test_tree_turns_overhead_reads_each_trees_audit():
+    """The audit workload runs each tree's own overhead audit, whose
+    payload the line describes."""
+    from mpi_blockchain_tpu_torch.blocktrace.overhead import \
+        measure_trace_overhead
+    from mpi_blockchain_tpu_torch.tools import tree_turns
+
+    script, keys, describe = tree_turns.WORKLOADS["overhead"]
+    assert "measure_trace_overhead(device=\"cuda\")" in script
+    compile(script, "tree_turns._OVERHEAD", "exec")
+    assert keys == ("overhead_pct",)
+    run = measure_trace_overhead(seconds=0.05, reps=1)
+    assert describe(run) == (
+        f"overhead {run['overhead_pct']}% (repetitions "
+        f"{run['all_overhead_pct']}), {run['pairs']} pairs")
+
+
+def test_tracing_cost_pairs_each_traced_run_with_its_neighbour():
+    turns = chip_smoke.TRACE_TURNS[:8]
+    host = [0.80, 0.50, 0.55, 0.70, 0.65, 0.60, 0.52, 0.66]
+    rows = {"traced": [], "off": []}
+    for turn, ms in zip(turns, host):
+        rows[turn].append({"host_ms_per_block": ms, "wall_s": 2 + ms})
+    cost = chip_smoke.tracing_cost(rows)
+    # (0.80, 0.50), (0.70, 0.55), (0.65, 0.60), (0.66, 0.52)
+    assert cost["pair_ms_per_block"] == [0.3, 0.15, 0.05, 0.14]
+    assert cost["median_ms_per_block"] == pytest.approx(0.145)
+    assert cost["median_wall_s"]["traced"] == pytest.approx(2.68)
+    assert cost["median_wall_s"]["off"] == pytest.approx(2.535)
+
+
 def test_telemetry_us_per_block_prices_the_miners_calls():
     from mpi_blockchain_tpu_torch import telemetry
 
@@ -421,3 +469,140 @@ def test_served_cases_window_each_winner_of_a_chain():
     top = chip_smoke.served_cases(bytes(80) + bytes(76) + b"\xff" * 4,
                                   [1], 8, half=16)
     assert top[0][2] + top[0][3] == 1 << 32
+
+
+# ---- phase 11: per-block tracing ------------------------------------------
+
+
+def test_device_union_may_not_exceed_the_sweeps_events():
+    chip_smoke.check_device_union(2.30, 2.39, "ok")
+    chip_smoke.check_device_union(2.39, 2.39, "equal")
+    with pytest.raises(chip_smoke.SmokeFailure, match="exceeds"):
+        chip_smoke.check_device_union(2.39 * 1.001, 2.39, "over")
+    # A window stamped at the consume reads the whole wall as busy.
+    with pytest.raises(chip_smoke.SmokeFailure, match="exceeds"):
+        chip_smoke.check_device_union(3.66, 2.39, "consume-stamped")
+
+
+def test_bubble_check_holds_the_pipeline_to_the_sweeps_events():
+    assert chip_smoke.check_bubble(0.2004, 2.332377, 2.853362, "ok") == (
+        pytest.approx(1 - 2.332377 / 2.853362))
+    # The refused run: the launch wrapper's host work on an idle card,
+    # timed as busy, pulled the event-based share down by 0.0655.
+    with pytest.raises(chip_smoke.SmokeFailure, match="bubble_fraction"):
+        chip_smoke.check_bubble(0.2735, 0.792, 1.0, "over")
+    # Windows stamped at the consume read an idle card as busy.
+    with pytest.raises(chip_smoke.SmokeFailure, match="bubble_fraction"):
+        chip_smoke.check_bubble(0.0, 2.332377, 2.853362, "consume-stamped")
+
+
+class _Log:
+    def __init__(self):
+        self.calls = []
+
+    def event(self):
+        log = self.calls
+        n = sum(1 for c in log if c[0] == "new")
+        log.append(("new", n))
+
+        class Event:
+            def record(self):
+                log.append(("record", n))
+        return Event()
+
+
+def test_library_bracket_times_the_librarys_call_alone():
+    log = _Log()
+
+    def entry(name):
+        def call(*args):
+            log.calls.append((name, args))
+            return 7
+        return call
+
+    lib = types.SimpleNamespace(**{n: entry(n)
+                                   for n in chip_smoke.SWEEP_ENTRIES},
+                                sha256d_block_step_launch=entry("step"))
+    saved = dict(vars(lib))
+    events = []
+    with chip_smoke.timed_library_calls(lib, events, log.event):
+        assert lib.sha256d_sweep_launch(1, 2) == 7
+        assert lib.sha256d_sweep_launch_timed(3) == 7
+        assert lib.sha256d_block_step_launch(4) == 7
+    # Each sweep entry between its own pair; the step is not a sweep.
+    assert log.calls == [
+        ("new", 0), ("new", 1), ("record", 0),
+        ("sha256d_sweep_launch", (1, 2)), ("record", 1),
+        ("new", 2), ("new", 3), ("record", 2),
+        ("sha256d_sweep_launch_timed", (3,)), ("record", 3),
+        ("step", (4,))]
+    assert len(events) == 2
+    assert vars(lib) == saved
+    with pytest.raises(RuntimeError):
+        with chip_smoke.timed_library_calls(lib, events, log.event):
+            raise RuntimeError
+    assert vars(lib) == saved
+    with pytest.raises(ValueError, match="bracket"):
+        chip_smoke.mine_timed(None, bracket="kernel")
+
+
+def _report(gaps: dict) -> dict:
+    from mpi_blockchain_tpu_torch.blocktrace.critical_path import \
+        critical_path_report
+
+    records = []
+    for h, gap in gaps.items():
+        t = float(h)
+        records.append({"dispatch": h, "rank": 0, "meta": {"height": h},
+                        "segments": [
+                            {"stage": "enqueue", "t0": t, "t1": t + 0.001},
+                            {"stage": "device", "t0": t + 0.001 + gap,
+                             "t1": t + 0.01}]})
+    return critical_path_report(records)
+
+
+def test_critical_path_check_needs_every_height_complete():
+    assert chip_smoke.check_critical_path(
+        _report({1: 0.0, 2: 0.0001, 3: 0.0}), 3, "ok") < 5.0
+    with pytest.raises(chip_smoke.SmokeFailure, match="block 2 "
+                       "incomplete"):
+        chip_smoke.check_critical_path(
+            _report({1: 0.0, 2: 0.002, 3: 0.0}), 3, "gap")
+    with pytest.raises(chip_smoke.SmokeFailure, match="heights"):
+        chip_smoke.check_critical_path(_report({1: 0.0, 3: 0.0}), 3,
+                                       "missing")
+
+
+def test_no_incident_check_fails_on_any_trace_of_one(tmp_path):
+    from mpi_blockchain_tpu_torch.telemetry.registry import Registry
+
+    reg = Registry()
+    chip_smoke.check_no_incident(str(tmp_path), [], reg, "clean")
+    (tmp_path / "incident_0001_event_storm.json").write_text("{}")
+    with pytest.raises(chip_smoke.SmokeFailure, match="raised incidents"):
+        chip_smoke.check_no_incident(str(tmp_path), [], reg, "bundle")
+    (tmp_path / "incident_0001_event_storm.json").unlink()
+    with pytest.raises(chip_smoke.SmokeFailure, match="raised incidents"):
+        chip_smoke.check_no_incident(str(tmp_path), [{"rule": "x"}], reg,
+                                     "event")
+    reg.counter("incidents_total", rule="x", severity="warn").inc()
+    with pytest.raises(chip_smoke.SmokeFailure, match="raised incidents"):
+        chip_smoke.check_no_incident(str(tmp_path), [], reg, "counter")
+
+
+def test_phase_11_plan_and_knobs_are_what_mine_reads():
+    from mpi_blockchain_tpu_torch.chainwatch.rules import EventStorm
+    from mpi_blockchain_tpu_torch.resilience.faultplan import FaultPlan
+
+    spec = FaultPlan.from_dict({"version": 1, "strict": True, "faults": [
+        chip_smoke.INCIDENT_FAULT]}).faults[0]
+    assert (spec.site, spec.kind, spec.call, spec.times) == (
+        "backend.cuda.dispatch", "raise", 2, 2)
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in chip_smoke.INCIDENT_ENV.items():
+            mp.setenv(k, v)
+        rule = EventStorm()
+    assert (rule.storm_n, rule.window_s) == (3, 60.0)
+    assert chip_smoke.TRACE_TURNS == ("traced", "off", "off", "traced") * 3
+    assert chip_smoke.OVERHEAD_ATTEMPTS[0] == {}
+    assert len(chip_smoke.OVERHEAD_ATTEMPTS) == 4

@@ -36,7 +36,8 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
     scanned = {f.relative_to(PORT).parts[0] for f in _port_files()
                if PORT in f.parents}
     assert {"service", "perfwatch", "chainwatch", "telemetry", "models",
-            "sim", "resilience", "ops", "backend"} <= scanned
+            "sim", "resilience", "ops", "backend", "blocktrace",
+            "meshwatch", "meshprof", "dispatchwatch"} <= scanned
     assert found == []
 
 

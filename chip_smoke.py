@@ -167,6 +167,27 @@ then:
    smoke takes them (``OVERHEAD_ATTEMPTS``), after a null read with both
    halves off (the estimator's zero), and ``measure_block_observe``
    within its 300 us bound.
+12. mesh observability (``meshwatch``, ``meshprof.analyzer``): (a) ``mine``
+   d24/n1000/2^24 through the pipelined ``Miner`` without and with
+   ``--mesh-obs`` in turns (``MESH_OBS_TURNS``), with events around the
+   library's call that launches each sweep: the pin, 1000 launches, walls
+   and host ms a block, and the shard's cost (medians); each final shard
+   ``finished``, its ``hashes_tried_total`` the summary's, ``cuda:0``
+   memory watermarks, a pipeline tail that renders a report; the same for
+   ``mine --fused --mesh-obs`` at 100 blocks a call (1000 sweeps, 1010
+   steps); (e) two ``mine --mesh-obs`` processes over gloo at the d20/n10
+   pin (phase 8's world): both shards under their ranks, every
+   ``mesh.sweep`` round joined across both by ``analyze_skew`` with its
+   ``max_skew_ms`` under ``SECTION_BOUNDS["collective_skew"]``, the
+   compile census not divergent, and a ``MeshServer`` on the directory
+   answering ``/healthz`` 200, ``/ranks`` both finished and a
+   rank-labeled ``/metrics``; (b) to (d) ``python -m
+   mpi_blockchain_tpu_torch.meshwatch smoke`` (four ranks on the card, the
+   victim at d28 killed mid-run: exactly it reads stale),
+   ``...chainwatch smoke`` (exactly one ``event_storm`` on the faulted
+   rank with a complete bundle, none in the clean world) and
+   ``...blocktrace smoke`` (two ranks, every height complete, both
+   overhead bounds), each in a session of its own (``run_module``).
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -175,7 +196,7 @@ plan did not cause.
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line; with no CUDA device it fails at once. It takes about
-seven minutes on one NVIDIA H100, the builds included.
+eight to nine minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
@@ -351,6 +372,18 @@ INCIDENT_FAULT = {"site": "backend.cuda.dispatch", "kind": "raise",
 OVERHEAD_ATTEMPTS = ({}, {"seconds": 1.5, "reps": 5},
                      {"seconds": 1.5, "reps": 5}, {"seconds": 2.0, "reps": 5})
 OVERHEAD_PAUSE_S = 5.0
+# Phase 12: mesh observability. (a) the d24/n1000 pipelined Miner through
+# ``mine``, with the shard (``--mesh-obs``) and without, in these turns;
+# (b) to (d) the multi-rank smokes, each with its ranks on the card.
+MESH_OBS_ARGS = ("--difficulty", "24", "--blocks", "1000", "--batch-pow2",
+                 "24")
+MESH_OBS_TURNS = ("off", "obs", "obs", "off")
+# (a) the shard writes timed after the runs, to price one flush.
+MESH_OBS_FLUSHES = 9
+SMOKES = (("meshwatch", "mpi_blockchain_tpu_torch.meshwatch", "b"),
+          ("chainwatch", "mpi_blockchain_tpu_torch.chainwatch", "c"),
+          ("blocktrace", "mpi_blockchain_tpu_torch.blocktrace", "d"))
+SMOKE_TIMEOUT_S = 240
 
 
 class SmokeFailure(Exception):
@@ -1746,8 +1779,12 @@ def phase_mesh(device, miner_chain: dict, fused: dict,
     return out
 
 
-def two_process_world(td: str, d20_wall: float) -> dict:
-    """Two ``mine`` processes sharing the card over gloo, d20/n10/b20."""
+def gloo_world(td: str, extra: list[str], what: str
+               ) -> tuple[dict, list[tuple[str, str]], float]:
+    """Two ``mine`` processes sharing the card over gloo at the
+    d20/n10/b20 pin, with ``extra`` flags: both exit 0 at the pinned tip,
+    rank 0 alone prints the summary. Returns rank 0's summary, each
+    rank's (stdout, stderr) and the wall of the whole launch."""
     import socket
 
     with socket.socket() as sock:
@@ -1755,11 +1792,10 @@ def two_process_world(td: str, d20_wall: float) -> dict:
         port = sock.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
-    chain_file = os.path.join(td, "world.bin")
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "mpi_blockchain_tpu_torch", "mine",
-         *WORLD_ARGS, "--out", chain_file, "--verbose", "--coordinator",
+         *WORLD_ARGS, *extra, "--verbose", "--coordinator",
          f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
          str(rank)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env=env, cwd=td) for rank in range(2)]
@@ -1771,25 +1807,34 @@ def two_process_world(td: str, d20_wall: float) -> dict:
             p.wait()
     spawn_wall = time.perf_counter() - t0
     rcs = [p.returncode for p in procs]
-    check(rcs == [0, 0], f"8 world: rcs {rcs}; "
+    check(rcs == [0, 0], f"{what}: rcs {rcs}; "
           f"{[e[-1500:] for _, e in got]}")
     pinned = PINNED_TIPS[(20, 10, 20)]
     summary = json.loads(got[0][0].strip().splitlines()[-1])
     tips = [last_block(err).get("hash") for _, err in got]
     check(summary["tip_hash"] == pinned and tips == [pinned, pinned],
-          f"8 world: summary tip {summary['tip_hash']}, ranks' tips {tips}")
-    check(got[1][0].strip() == "", f"8 world: rank 1 printed "
+          f"{what}: summary tip {summary['tip_hash']}, ranks' tips {tips}")
+    check(got[1][0].strip() == "", f"{what}: rank 1 printed "
           f"{got[1][0][-300:]!r}")
-    check(summary["config"]["n_miners"] == 2, f"8 world: {summary}")
+    check(summary["config"]["n_miners"] == 2, f"{what}: {summary}")
+    check_no_step_down(summary, "cuda:cuda", what)
+    return summary, got, spawn_wall
+
+
+def two_process_world(td: str, d20_wall: float) -> dict:
+    """Two ``mine`` processes sharing the card over gloo, d20/n10/b20."""
+    chain_file = os.path.join(td, "world.bin")
+    summary, _, spawn_wall = gloo_world(td, ["--out", chain_file],
+                                        "8 world")
     from mpi_blockchain_tpu_torch import core
     with open(chain_file, "rb") as f:
         check(core.Node(summary["config"]["difficulty_bits"]).load(f.read()),
               "8 world: chain invalid")
     log(f"phase 8 two processes over gloo on one card (d20/n10/b20): both "
-        f"ranks reach the pinned tip {pinned}, rank 0 alone wrote the "
-        f"chain and the summary; wall {summary['wall_s']} s (rank 0's "
-        f"mine_chain; the whole launch {spawn_wall:.3f} s) beside one "
-        f"process's {d20_wall} s (phase 3); hashes_tried "
+        f"ranks reach the pinned tip {PINNED_TIPS[(20, 10, 20)]}, rank 0 "
+        f"alone wrote the chain and the summary; wall {summary['wall_s']} s "
+        f"(rank 0's mine_chain; the whole launch {spawn_wall:.3f} s) beside "
+        f"one process's {d20_wall} s (phase 3); hashes_tried "
         f"{summary['hashes_tried']}, rung {summary['rung']}")
     return {"wall_s": summary["wall_s"], "launch_wall_s": spawn_wall,
             "single_process_wall_s": d20_wall,
@@ -2888,6 +2933,298 @@ def phase_trace(device, cold_nvcc: int) -> dict:
     return out
 
 
+def cli_run_timed(argv: list[str]) -> dict:
+    """``mine`` through the CLI in this process with CUDA events around the
+    library's call that launches each sweep (``timed_library_calls``):
+    rc, summary, the sweeps' event time and the sweep and step launches.
+    The wall is the summary's (``mine_chain`` alone: arming the shard and
+    its final write lie outside it)."""
+    import torch
+
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.meshwatch.pipeline import reset_profiler
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    telemetry.reset()
+    reset_profiler()
+    events: list = []
+    sha256_cuda.launches = sha256_block.step_launches = 0
+    torch.cuda.synchronize()
+    with timed_library_calls(sha256_cuda.library(), events,
+                             lambda: torch.cuda.Event(enable_timing=True)):
+        rc, summary = run_cli(argv)
+    sweeps, steps = sha256_cuda.launches, sha256_block.step_launches
+    torch.cuda.synchronize()
+    kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    return {"rc": rc, "summary": summary, "wall_s": summary.get("wall_s"),
+            "kernel_s": kernel_s, "sweeps": sweeps, "steps": steps}
+
+
+def check_final_shard(obs: str, summary: dict, what: str) -> dict:
+    """The run's final shard: finished, under rank 0, with ``cuda:0``
+    memory watermarks, a pipeline tail that renders a report, and (the
+    per-block driver) ``hashes_tried_total`` equal to the summary's."""
+    from mpi_blockchain_tpu_torch.meshwatch.aggregate import (rank_status,
+                                                              read_shards)
+    from mpi_blockchain_tpu_torch.meshwatch.pipeline import pipeline_report
+
+    shards = read_shards(obs)
+    check([s["rank"] for s in shards] == [0], f"{what}: shards "
+          f"{[s['rank'] for s in shards]}")
+    final = shards[0]
+    status = rank_status(shards)["ranks"]["0"]
+    check(final["final"] and final["exit_status"] == 0
+          and status["status"] == "finished",
+          f"{what}: final shard {status}")
+    hashed = sum(m["value"] for m in
+                 final["registry"].get("hashes_tried_total", []))
+    if "hashes_tried" in summary:
+        check(hashed == summary["hashes_tried"],
+              f"{what}: shard hashes_tried_total {hashed}, summary "
+              f"{summary['hashes_tried']}")
+    memory = final["memory"].get("cuda:0", {})
+    check(memory.get("bytes_in_use", 0) > 0, f"{what}: memory "
+          f"{final['memory']}")
+    report = pipeline_report(final["pipeline"])
+    check(report["dispatch_count"] > 0
+          and report["bubble_fraction"] is not None,
+          f"{what}: pipeline tail report {report}")
+    return {"hashes_tried_total": hashed, "memory": memory,
+            "pipeline_tail": len(final["pipeline"]),
+            "tail_report": {k: report[k] for k in (
+                "dispatch_count", "bubble_fraction",
+                "host_overlapped_fraction")},
+            "seq": final["seq"], "compiles": final["compiles"]}
+
+
+def flush_cost_ms(td: str, n: int = MESH_OBS_FLUSHES) -> dict:
+    """What one shard flush holds the interpreter for, after a d24/n1000
+    run (the profiler holds its 1000 records, so a shard carries the full
+    512-record tail), with the watchdog armed as ``--mesh-obs`` arms it:
+    medians over ``n`` writes of building the payload (its forced
+    chainwatch sweep included), of its ``json.dumps``, and of the whole
+    atomic write; and the shard's bytes."""
+    import statistics
+
+    from mpi_blockchain_tpu_torch import chainwatch
+    from mpi_blockchain_tpu_torch.meshwatch.shard import ShardWriter
+
+    writer = ShardWriter(os.path.join(td, "flush"))
+    times: dict[str, list[float]] = {"payload_ms": [], "dumps_ms": [],
+                                     "flush_ms": []}
+    chainwatch.install(None)
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            payload = writer.payload()
+            t1 = time.perf_counter()
+            data = json.dumps(payload, sort_keys=True, default=str)
+            t2 = time.perf_counter()
+            writer.write()
+            t3 = time.perf_counter()
+            for key, dt in (("payload_ms", t1 - t0), ("dumps_ms", t2 - t1),
+                            ("flush_ms", t3 - t2)):
+                times[key].append(dt * 1e3)
+    finally:
+        chainwatch.uninstall()
+    return {**{k: statistics.median(v) for k, v in times.items()},
+            "bytes": len(data), "pipeline_records": len(payload["pipeline"])}
+
+
+def run_module(module: str, args: list[str], timeout: float) -> dict:
+    """``python -m module args`` from the checkout's root in a session of
+    its own (the smokes start rank processes; a timeout kills them all):
+    rc, the last JSON line of its stdout, the tail of its stderr, wall."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=REPO_ROOT,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    lines = [ln for ln in out.splitlines() if ln.strip().startswith("{")]
+    return {"rc": proc.returncode,
+            "out": json.loads(lines[-1]) if lines else {},
+            "err": err[-2000:], "wall_s": time.perf_counter() - t0}
+
+
+def mesh_world(td: str) -> dict:
+    """Two ``mine --mesh-obs`` processes over gloo on one card at the
+    d20/n10/b20 pin: both shards under their ranks, both ranks on the
+    card's rung with no retry or step-down, the ``mesh.sweep`` rounds
+    joined across both, the compile census alike, and a ``MeshServer`` on
+    the directory."""
+    import urllib.request
+
+    from mpi_blockchain_tpu_torch.meshprof.analyzer import analyze_skew
+    from mpi_blockchain_tpu_torch.meshwatch.aggregate import (mesh_compiles,
+                                                              read_shards)
+    from mpi_blockchain_tpu_torch.meshwatch.server import MeshServer
+    from mpi_blockchain_tpu_torch.meshwatch.world import rung_fault
+    from mpi_blockchain_tpu_torch.perfwatch.detector import SECTION_BOUNDS
+
+    what = "phase 12e gloo world"
+    obs = os.path.join(td, "mesh")
+    summary, got, _ = gloo_world(td, ["--mesh-obs", obs], what)
+    shards = read_shards(obs)
+    check([(s["rank"], s["world_size"], s["final"]) for s in shards]
+          == [(0, 2, True), (1, 2, True)],
+          f"{what}: shards {[(s['rank'], s['world_size']) for s in shards]}")
+    for shard in shards:
+        # Rank 1 prints no summary; its shard speaks for it.
+        fault = rung_fault(shard["rank"], "cuda", shard,
+                           got[0][0] if shard["rank"] == 0 else None)
+        check(fault is None, f"{what}: {fault}")
+    report = analyze_skew(shards)
+    rounds = [len([sp for sp in s["skew_spans"] if sp["site"] == "mesh.sweep"])
+              for s in shards]
+    site = report["sites"].get("mesh.sweep", {})
+    check(site.get("ranks") == [0, 1] and rounds[0] == rounds[1]
+          == site.get("rounds", -1) > 0,
+          f"{what}: mesh.sweep spans {rounds}, joined {site}")
+    bound = SECTION_BOUNDS["collective_skew"]
+    check(report["max_skew_ms"] < bound,
+          f"{what}: max skew {report['max_skew_ms']} ms, bound {bound}")
+    compiles = mesh_compiles(shards)
+    check(not compiles.get("divergent", False),
+          f"{what}: divergent compile census {compiles}")
+    server = MeshServer(obs, port=0, stall_s=1e9)
+    server.start()
+    try:
+        with urllib.request.urlopen(server.url("/healthz"), timeout=10) as r:
+            healthz = (r.status, json.loads(r.read()))
+        with urllib.request.urlopen(server.url("/ranks"), timeout=10) as r:
+            ranks = json.loads(r.read())
+        with urllib.request.urlopen(server.url("/metrics"), timeout=10) as r:
+            metrics = r.read().decode()
+    finally:
+        server.close()
+    check(healthz[0] == 200 and healthz[1]["healthy"],
+          f"{what}: /healthz {healthz}")
+    check({r: v["status"] for r, v in ranks.items()}
+          == {"0": "finished", "1": "finished"}, f"{what}: /ranks {ranks}")
+    check('rank="0"' in metrics and 'rank="1"' in metrics,
+          f"{what}: /metrics has no rank labels")
+    return {"wall_s": summary["wall_s"], "rounds": site["rounds"],
+            "max_skew_ms": report["max_skew_ms"],
+            "straggler_rank": report["straggler_rank"],
+            "skew": {k: site[k] for k in ("skew_ms", "clock_offset_ms",
+                                          "idle_chip_ms")},
+            "compiles": compiles,
+            "pipeline_records_by_rank": [len(s["pipeline"])
+                                         for s in shards]}
+
+
+def phase_mesh_obs(device) -> dict:
+    """Phase 12: mesh observability on the card. (a) ``mine --mesh-obs``
+    at d24/n1000/2^24 through the pipelined ``Miner``, with and without
+    the shard in turns (MESH_OBS_TURNS), and ``mine --fused --mesh-obs``:
+    the pins, the final shards, wall and host ms a block; (b) to (d) the
+    meshwatch, chainwatch and blocktrace smokes with their ranks on the
+    card; (e) two gloo processes at the d20/n10 pin with ``--mesh-obs``,
+    the skew analyzer and a ``MeshServer`` on their shards."""
+    import statistics
+
+    out: dict = {"miner": {"obs": [], "off": []}}
+    pin = PINNED_TIPS[(24, 1000, 24)]
+    with tempfile.TemporaryDirectory() as td:
+        for i, turn in enumerate(MESH_OBS_TURNS):
+            obs = os.path.join(td, f"miner{i}")
+            argv = ["mine", *MESH_OBS_ARGS]
+            if turn == "obs":
+                argv += ["--mesh-obs", obs]
+            run = cli_run_timed(argv)
+            what = f"phase 12a mine {turn}"
+            check(run["rc"] == 0 and run["summary"].get("tip_hash") == pin,
+                  f"{what}: rc {run['rc']}, {run['summary']}")
+            check_no_step_down(run["summary"], "cuda:cuda", what)
+            check(run["sweeps"] == 1000, f"{what}: {run['sweeps']} sweeps")
+            row = {"wall_s": run["wall_s"], "kernel_s": run["kernel_s"],
+                   "host_ms_per_block": host_ms_per_block(run, 1000),
+                   "launches": run["sweeps"]}
+            if turn == "obs":
+                row["shard"] = check_final_shard(obs, run["summary"], what)
+            out["miner"][turn].append(row)
+            log(f"{what} d24/n1000/b24 (pipelined Miner): tip matches, "
+                f"wall {row['wall_s']} s, sweeps {row['kernel_s']:.6f} s, "
+                f"host {row['host_ms_per_block']:.4f} ms a block, "
+                f"{row['launches']} launches"
+                + (f"; final shard {row['shard']}" if turn == "obs"
+                   else ""))
+        med = {turn: {k: statistics.median(r[k] for r in rows)
+                      for k in ("wall_s", "host_ms_per_block")}
+               for turn, rows in out["miner"].items()}
+        out["cost"] = {
+            "wall_s": med["obs"]["wall_s"] - med["off"]["wall_s"],
+            "host_ms_per_block": med["obs"]["host_ms_per_block"]
+            - med["off"]["host_ms_per_block"], "medians": med}
+        log(f"phase 12a the shard's cost (medians of {MESH_OBS_TURNS}): "
+            f"wall {med['obs']['wall_s']} s with against "
+            f"{med['off']['wall_s']} s without ({out['cost']['wall_s']:+.4f}"
+            f" s), host {med['obs']['host_ms_per_block']:.4f} against "
+            f"{med['off']['host_ms_per_block']:.4f} ms a block "
+            f"({out['cost']['host_ms_per_block']:+.4f})")
+        out["flush"] = flush_cost_ms(td)
+        log(f"phase 12a one shard flush after the run (medians of "
+            f"{MESH_OBS_FLUSHES}): payload {out['flush']['payload_ms']:.3f}"
+            f" ms, json.dumps {out['flush']['dumps_ms']:.3f} ms, the whole "
+            f"write {out['flush']['flush_ms']:.3f} ms, "
+            f"{out['flush']['bytes']} bytes, "
+            f"{out['flush']['pipeline_records']} pipeline records")
+        obs = os.path.join(td, "fused")
+        run = cli_run_timed(["mine", "--fused", "--blocks-per-call", "100",
+                             *MESH_OBS_ARGS, "--mesh-obs", obs])
+        what = "phase 12a mine --fused --mesh-obs"
+        check(run["rc"] == 0 and run["summary"].get("tip_hash") == pin,
+              f"{what}: rc {run['rc']}, {run['summary']}")
+        check(run["sweeps"] == 1000 and run["steps"] == 1010,
+              f"{what}: {run['sweeps']} sweeps, {run['steps']} steps")
+        out["fused"] = {"wall_s": run["wall_s"], "kernel_s": run["kernel_s"],
+                        "sweeps": run["sweeps"], "steps": run["steps"],
+                        "shard": check_final_shard(obs, run["summary"],
+                                                   what)}
+        log(f"{what} d24/n1000 at 100 a call: tip matches, wall "
+            f"{run['wall_s']} s, {run['sweeps']} sweeps and {run['steps']} "
+            f"steps; final shard {out['fused']['shard']}")
+
+        # (e) first: it shares phase 8's world shape.
+        out["world"] = mesh_world(td)
+        log(f"phase 12e two processes over gloo with --mesh-obs "
+            f"(d20/n10/b20): both ranks at the pin, shards rank_0000 and "
+            f"rank_0001 final; {out['world']['rounds']} mesh.sweep rounds "
+            f"joined across both ranks, max skew "
+            f"{out['world']['max_skew_ms']} ms, {out['world']['skew']}; "
+            f"compiles {out['world']['compiles']}; MeshServer /healthz 200, "
+            f"/ranks both finished, /metrics rank-labeled; both ranks on "
+            f"cuda:cuda, no retry or step-down; pipeline records in the "
+            f"shards' tails {out['world']['pipeline_records_by_rank']}")
+
+    for name, module, key in SMOKES:
+        res = run_module(module, ["smoke"], SMOKE_TIMEOUT_S)
+        check(res["rc"] == 0 and res["out"].get("ok") is True,
+              f"phase 12{key} {name} smoke on the card: rc {res['rc']}, "
+              f"{res['out']}, {res['err']}")
+        out[name] = {**res["out"], "wall_s": res["wall_s"]}
+        log(f"phase 12{key} {module} smoke (ranks on the card, each "
+            f"held by the smoke to cuda:cuda with no step-down and no retry "
+            f"but its plan's): "
+            f"{res['out']}, {res['wall_s']:.1f} s")
+    stale = out["meshwatch"]["stale_ranks"]
+    check(stale == [2], f"phase 12b: stale ranks {stale}")
+    check(out["chainwatch"]["incident_rank"] == 2
+          and out["chainwatch"]["clean_incidents"] == 0,
+          f"phase 12c: {out['chainwatch']}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2936,6 +3273,7 @@ def main() -> int:
         sim = phase_sim(device)
         serve = phase_serve(device)
         trace = phase_trace(device, startup_nvcc)
+        mesh_obs = phase_mesh_obs(device)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2974,8 +3312,13 @@ def main() -> int:
             turn: [r["launches"] for r in rows]
             for turn, rows in trace["miner"].items()},
         "launches_trace_fused_d24_n1000": trace["fused"]["sweeps"],
+        "launches_mesh_obs_miner_d24_n1000": {
+            turn: [r["launches"] for r in rows]
+            for turn, rows in mesh_obs["miner"].items()},
+        "launches_mesh_obs_fused_d24_n1000": mesh_obs["fused"]["sweeps"],
         "bench": bench, "mesh8": mesh, "resilience": resilience,
-        "sim": sim, "serve": serve, "trace": trace}, {
+        "sim": sim, "serve": serve, "trace": trace,
+        "mesh_obs": mesh_obs}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",
@@ -2986,6 +3329,7 @@ def main() -> int:
         "launches_sim_d24": sim["d24"]["step_launches"],
         "launches_serve": serve["step_launches"],
         "launches_trace_fused_d24_n1000": trace["fused"]["steps"],
+        "launches_mesh_obs_fused_d24_n1000": mesh_obs["fused"]["steps"],
         "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
         "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
     log(json.dumps({"ok": True, "device": {

@@ -6,15 +6,59 @@ rule exact. The ``backend.cpu.search`` fault site sits before the sweep:
 ``raise`` / ``hang`` fire there, ``corrupt`` / ``partial`` damage the
 result. The sweep runs inside the reference's ``backend.cpu.search``
 span.
+
+``launch``, the start of a search that the pipelined driver issues, hands
+it to the backend's one search thread, as the reference hands every
+dispatch to its one dispatch worker: the C++ sweep releases the
+interpreter lock, so it runs from the issue while the driver validates
+and appends the previous block, and its time on that thread
+(``HostSweep``) is the length of the dispatch's device window.
+``search`` runs on the calling thread.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import time
 
 from .. import core
 from ..resilience import injection
 from ..telemetry.spans import span
 from . import MinerBackend, SearchResult, _faulted_result, register
+
+
+class HostSweep:
+    """A search on a backend's search thread, the C++ sweep's counterpart
+    of a sweep on the card (``ops.sha256_cuda.LaunchedSweep``): ``ready``
+    says without blocking whether it is done, ``wait`` waits for it up to
+    a timeout (True once done), and ``timing`` gives, once it is done,
+    (when it was handed to the thread, on ``time.perf_counter()``; the
+    seconds the thread spent in it), as a sweep on the card gives its
+    launch and its time there."""
+
+    timed = True
+    __slots__ = ("future", "launched", "started", "ended")
+
+    def __init__(self):
+        self.future: concurrent.futures.Future | None = None
+        self.launched = time.perf_counter()
+        self.started = self.ended = 0.0
+
+    def run(self, search, *args, **kwargs):
+        self.started = time.perf_counter()
+        try:
+            return search(*args, **kwargs)
+        finally:
+            self.ended = time.perf_counter()
+
+    def ready(self) -> bool:
+        return self.future.done()
+
+    def wait(self, timeout: float | None) -> bool:
+        done, _ = concurrent.futures.wait((self.future,), timeout)
+        return bool(done)
+
+    def timing(self) -> tuple[float, float]:
+        return self.launched, self.ended - self.started
 
 
 @register("cpu")
@@ -24,6 +68,27 @@ class CpuBackend(MinerBackend):
         self.batch_size = batch_size
         self._pool = (concurrent.futures.ThreadPoolExecutor(n_ranks)
                       if n_ranks > 1 else None)
+        self._thread: concurrent.futures.ThreadPoolExecutor | None = None
+
+    def launch(self, header80: bytes, difficulty_bits: int,
+               start_nonce: int = 0, max_count: int = 1 << 32):
+        """Starts the search on this backend's one search thread (searches
+        run there one at a time, in issue order) and returns the function
+        that waits for its result. The finish carries ``ready``, ``wait``
+        and ``sweep``, the ``HostSweep``."""
+        if self._thread is None:
+            self._thread = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix="cpu-search")
+        sweep = HostSweep()
+        sweep.future = self._thread.submit(
+            sweep.run, self.search, header80, difficulty_bits,
+            start_nonce=start_nonce, max_count=max_count)
+
+        def finish() -> SearchResult:
+            return sweep.future.result()
+        finish.ready, finish.wait, finish.sweep = \
+            sweep.ready, sweep.wait, sweep
+        return finish
 
     def search(self, header80: bytes, difficulty_bits: int,
                start_nonce: int = 0, max_count: int = 1 << 32) -> SearchResult:

@@ -19,6 +19,12 @@ pieces:
 * **overhead**: prices the instrumentation itself, instrumented against
   ``MPIBT_TELEMETRY_OFF`` in paired rounds (``python -m
   mpi_blockchain_tpu_torch.blocktrace overhead``).
+* **export**: the Perfetto export of a critical-path report, with each
+  block's critical path as a flow, and the collective, incident and
+  compile rows.
+
+``python -m mpi_blockchain_tpu_torch.blocktrace smoke`` drives all of it
+over two ``--mesh-obs`` ranks.
 
 This ``__init__`` re-exports only the context layer: ``meshwatch.pipeline``
 imports it from the telemetry hot path, and the analyzer imports

@@ -7,13 +7,15 @@ bundles evidence while the run keeps mining. ``--incident-dir DIR`` (or
 ``MPIBT_INCIDENT_DIR``) on ``mine``, ``bench``, ``sim`` and ``serve`` arms
 it with bundles written into DIR.
 
-The evaluation cadence (never a new thread on the hot path) is the
+The two evaluation cadences (never a new thread on the hot path): the
 per-block ``blocktrace.observe_block_metrics`` call of both miner drivers
 and the fused miner's batch observe, throttled inside ``evaluate`` to at
-most one full rule sweep per ``MPIBT_CHAINWATCH_INTERVAL`` seconds; the
-overhead audit (``blocktrace/overhead.py``) prices the same call. The
-reference's other cadence, the mesh shard flusher, waits for the
-``--mesh-obs`` slice of the port.
+most one full rule sweep per ``MPIBT_CHAINWATCH_INTERVAL`` seconds (the
+overhead audit, ``blocktrace/overhead.py``, prices the same call); and the
+meshwatch shard flusher's tick (``--mesh-obs``), off the mining thread,
+which forces a full sweep. ``--mesh-obs`` alone arms the rules, without
+bundles. ``python -m mpi_blockchain_tpu_torch.chainwatch smoke`` drives
+both sides of the contract over a 4-rank world.
 
 Under ``MPIBT_TELEMETRY_OFF`` (or uninstalled) ``evaluate`` is a flag
 check and nothing else: no rule state, no events, no files.

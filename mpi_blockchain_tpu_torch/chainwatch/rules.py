@@ -161,9 +161,10 @@ class HashrateCollapse(Rule):
 
 class CollectiveSkewSpike(Rule):
     """``collective_skew_ms`` p95 (live registry histogram, per site)
-    over the absolute bound. The skew analyzer publishes the histogram; it
-    waits for the ``--mesh-obs`` slice of the port, and a world that never
-    publishes skew never feeds this rule."""
+    over the absolute bound. The histogram is populated by
+    ``meshprof.analyzer.publish_skew`` from the ``mesh.sweep`` spans the
+    ranks' shards carry; a world that never publishes skew never feeds
+    this rule."""
 
     name = "collective_skew_spike"
     severity = "warn"

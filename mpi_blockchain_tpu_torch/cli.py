@@ -73,6 +73,13 @@ dispatch was recorded: ``host_overlapped_fraction``, ``bubble_fraction``
 ``--incident-dir DIR`` (or ``MPIBT_INCIDENT_DIR``) on mine, bench, sim and
 serve arms the ``chainwatch`` watchdog for the run's length, with its
 evidence bundles written into DIR.
+``--mesh-obs DIR`` (or ``MPIBT_MESH_OBS``) on the same four writes this
+rank's telemetry shard into DIR on a flusher thread, and a final one on
+exit carrying the exit status (``meshwatch/shard.py``); the rank is
+``--process-id`` or ``MPIBT_MESH_RANK``. ``python -m
+mpi_blockchain_tpu_torch.meshwatch`` merges a directory of shards,
+reports its pipeline and serves the mesh ``/healthz``. A shard armed
+without ``--incident-dir`` arms the watchdog too, without bundles.
 
 ``mine`` searches through the resilience layer's ``ResilientBackend``
 (retries, host re-validation of every winner, the step-down ladder
@@ -138,13 +145,22 @@ def _add_metrics_dump_arg(p: argparse.ArgumentParser) -> None:
                         "the duration of the run (0 = ephemeral port, "
                         "announced on stderr; env MPIBT_METRICS_PORT also "
                         "enables it)")
+    p.add_argument("--mesh-obs", metavar="DIR", default=None,
+                   help="write this rank's telemetry shard (registry "
+                        "snapshot, heartbeats, pipeline records) into DIR "
+                        "on a background flusher, for mesh-wide "
+                        "aggregation with python -m "
+                        "mpi_blockchain_tpu_torch.meshwatch (env "
+                        "MPIBT_MESH_OBS also arms it; rank from "
+                        "--process-id or MPIBT_MESH_RANK)")
     p.add_argument("--incident-dir", metavar="DIR", default=None,
                    help="arm the chainwatch live watchdog with an "
                         "incident-bundle directory: anomaly rules run on "
                         "the per-block telemetry cadence and a firing rule "
                         "writes a bounded, non-fatal evidence bundle into "
                         "DIR while the run keeps mining (env "
-                        "MPIBT_INCIDENT_DIR also arms it)")
+                        "MPIBT_INCIDENT_DIR also arms it; --mesh-obs arms "
+                        "the rules without bundles)")
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -225,6 +241,22 @@ def _resume(miner, path: str, cfg) -> str | None:
             print(f"resume: checkpoint seal repaired (height "
                   f"{node.height}, no chain bytes lost)", file=sys.stderr)
     return None
+
+
+def _mesh_identity(args) -> tuple[int, int]:
+    """This process's (rank, world_size) for its shard: the world-of-
+    processes flags win; a standalone rank (one process a rank, no
+    coordinator) is labeled through MPIBT_MESH_RANK / MPIBT_MESH_WORLD by
+    whatever launched it."""
+    from .telemetry.events import env_number
+
+    rank = getattr(args, "process_id", None)
+    if rank is None:
+        rank = env_number("MPIBT_MESH_RANK", 0, cast=int, minimum=0)
+    world = getattr(args, "num_processes", None)
+    if world is None:
+        world = env_number("MPIBT_MESH_WORLD", 1, cast=int, minimum=1)
+    return rank, world
 
 
 def _init_world(args, cfg):
@@ -980,19 +1012,45 @@ def main(argv: list[str] | None = None) -> int:
             print(f"serving metrics on http://127.0.0.1:{port} "
                   f"(/metrics /healthz /events)", file=sys.stderr,
                   flush=True)
+    mesh_obs = getattr(args, "mesh_obs", None)
+    if mesh_obs is None and hasattr(args, "mesh_obs"):
+        # The environment arms only the subcommands that take the flag.
+        mesh_obs = os.environ.get("MPIBT_MESH_OBS") or None
+    shard_armed = False
+    # The exit status the final shard carries: every handled path below
+    # sets it; an unhandled exception leaves "error", so a crashed rank
+    # never reads as cleanly finished in the mesh view.
+    exit_status: int | str = "error"
+    if mesh_obs:
+        from .meshwatch import shard as mesh_shard
+
+        rank, world = _mesh_identity(args)
+        try:
+            mesh_shard.install(mesh_obs, rank=rank, world_size=world)
+        except OSError as e:
+            # An unwritable shard directory must not kill the run it
+            # observes.
+            print(f"mesh-obs failed: {e}", file=sys.stderr)
+        else:
+            shard_armed = True
+            print(f"mesh-obs: rank {rank}/{world} shard -> {mesh_obs}",
+                  file=sys.stderr, flush=True)
     incident_dir = getattr(args, "incident_dir", None)
     if incident_dir is None and hasattr(args, "incident_dir"):
         # The environment arms only the subcommands that take the flag.
         incident_dir = os.environ.get("MPIBT_INCIDENT_DIR") or None
     chainwatch_armed = False
-    if incident_dir:
-        # The live watchdog: its rules ride the per-block observation;
-        # a firing rule writes its evidence bundle into the directory.
+    if incident_dir or shard_armed:
+        # The live watchdog: its rules ride the per-block observation and
+        # the shard flush tick; a firing rule writes its evidence bundle
+        # into the directory, and without one still signals (event,
+        # counter, the shard's open incidents).
         from . import chainwatch
-        chainwatch.install(incident_dir)
+        chainwatch.install(incident_dir or None)
         chainwatch_armed = True
-        print(f"chainwatch: armed, incident bundles -> {incident_dir}",
-              file=sys.stderr, flush=True)
+        if incident_dir:
+            print(f"chainwatch: armed, incident bundles -> {incident_dir}",
+                  file=sys.stderr, flush=True)
     try:
         if fault_arg:
             from .resilience import injection
@@ -1009,12 +1067,14 @@ def main(argv: list[str] | None = None) -> int:
             plan_armed = False
             from .resilience import injection
             injection.disarm(strict=(rc == 0))
+        exit_status = rc
         return rc
     except FaultPlanError as e:
         # Before ConfigError, which it subclasses: "bad or unexhausted
         # fault plan" (3) is told apart from a bad config (2).
         print(json.dumps({"event": "error", "kind": "fault_plan",
                           "error": str(e)}, sort_keys=True))
+        exit_status = 3
         return 3
     except RetryExhausted as e:
         # Every attempt on every rung failed: a clean failure, not a
@@ -1022,12 +1082,14 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"event": "error", "kind": "retry_exhausted",
                           "site": e.site, "error": str(e)},
                          sort_keys=True))
+        exit_status = 2
         return 2
     except KernelError as e:
         # A kernel that failed to build or launch: never retried, never
         # stepped over.
         print(json.dumps({"event": "error", "kind": "kernel",
                           "error": str(e)}, sort_keys=True))
+        exit_status = 2
         return 2
     except ConfigError as e:
         # Config errors (no card, bad kernel/device pair, an invalid
@@ -1035,6 +1097,7 @@ def main(argv: list[str] | None = None) -> int:
         # exception keeps its traceback.
         print(json.dumps({"event": "error", "error": str(e)},
                          sort_keys=True))
+        exit_status = 2
         return 2
     finally:
         if plan_armed:
@@ -1048,6 +1111,15 @@ def main(argv: list[str] | None = None) -> int:
                 dump_metrics(args.metrics_dump)
             except OSError as e:
                 print(f"metrics-dump failed: {e}", file=sys.stderr)
+        # The final shard says goodbye and how it went: rc 0 reads as
+        # `finished` in the mesh view, any other rc (or "error") as
+        # `failed`. It is written here, before main returns: a process
+        # that joined a world then leaves through os._exit
+        # (parallel.distributed.exit_process).
+        if shard_armed:
+            from .meshwatch import shard as mesh_shard
+            mesh_shard.uninstall(status=exit_status)
+        # After the final shard, which still carries any open incidents.
         if chainwatch_armed:
             from . import chainwatch
             chainwatch.uninstall()

@@ -68,10 +68,17 @@ thread (``_card_window``). A discarded speculative sweep that reached the
 card is drained the same way once it is done, at a later consume, as
 unattributed work; one still on the card when the chain ends stays
 unrecorded, and one that failed is a ``speculative_dispatch_failed``
-event. Where the search has no card events (the C++ sweep, the plain
-sweep, a world of processes, a retried search) the window is the call
-that did the work: the issue call of a synchronous ``search_async``, else
-the consume. The ``enqueue`` segment covers the
+event. The C++ sweep behind ``ResilientBackend`` runs on its backend's
+search thread from the issue (``backend.cpu.HostSweep``), as the
+reference's runs on its dispatch worker, and its window is taken as on
+the card: it opens at the hand-off to the thread (or the previous
+window's end) and lasts the time the thread spent in the search; the
+thread's own start, which waits for the interpreter lock, falls to the
+chained ``validate`` as the card's launch latency does. A discarded one
+is drained as on the card. Where the search has neither (the plain sweep, a
+world of processes, a retried search) the window is the call that did
+the work: the issue call of a synchronous ``search_async``, else the
+consume. The ``enqueue`` segment covers the
 candidate build and the issue call (on the card, the host's midstate
 precompute and the launch).
 """
@@ -420,9 +427,10 @@ class Miner:
     def _device_window(self, d: _SweepDispatch, t_wait: float,
                        t_done: float) -> tuple[float, float]:
         """A consumed dispatch's device window on the profiler's clock:
-        from the card's events when its result came from the sweep it
-        launched on the card, else the call that did the work (the issue
-        call of a synchronous ``search_async``, else the consume)."""
+        from its started sweep's launch and time (on the card, its
+        events; on a search thread, its stamps) when its result is that
+        sweep's, else the call that did the work (the issue call of a
+        synchronous ``search_async``, else the consume)."""
         if d.sync:
             return d.t_issue, d.t_issued
         sweep = getattr(d.future, "sweep", None)
@@ -433,10 +441,10 @@ class Miner:
     def _card_window(self, prec, launched: float,
                      device_s: float) -> tuple[float, float]:
         """The window of a sweep launched at ``launched`` (perf_counter)
-        that ran ``device_s`` on the card, on the profiler's clock. Sweeps
-        on one stream run in order, so it opens when it was launched or
-        when the previous window closed, whichever is later. Windows are
-        taken in launch order."""
+        that ran ``device_s`` on the card (or on a search thread), on the
+        profiler's clock. Sweeps on one stream (one thread) run in order,
+        so it opens when it was launched or when the previous window
+        closed, whichever is later. Windows are taken in launch order."""
         start = max(launched, self._card_end)
         self._card_end = start + device_s
         return prec.at(start), prec.at(self._card_end)

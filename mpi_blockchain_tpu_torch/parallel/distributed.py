@@ -41,10 +41,14 @@ def init_distributed(coordinator: str, num_processes: int,
                             world_size=num_processes, rank=process_id)
     global _joined
     _joined = True
-    # The rank stamp: every rank-labeled metric, block trace frame and
-    # pipeline record this process makes from here on carries it.
+    # The rank stamp: every rank-labeled metric, block trace frame,
+    # pipeline record and meshwatch shard this process makes from here on
+    # carries it, the shard's file included (the CLI armed the writer
+    # before the world existed; rebind moves it to its rank_NNNN.json).
+    from ..meshwatch.shard import rebind_installed
     from ..telemetry import set_mesh_rank
     set_mesh_rank(process_id)
+    rebind_installed(process_id, num_processes)
 
 
 def shutdown_distributed() -> None:

@@ -75,14 +75,21 @@ POLL_S: float | None = None
 
 
 def _wait_ready(finish, deadline: float | None) -> None:
-    """Waits, until ``deadline`` (``time.monotonic()``), for the device
-    work behind a started search: a finish that carries ``ready`` (a
-    sweep on the card) is polled; one that carries none (the C++ sweep,
-    the plain version) has no device work to wait for. Raises
+    """Waits, until ``deadline`` (``time.monotonic()``), for the work in
+    flight behind a started search: a finish that carries ``wait`` (the
+    C++ sweep on its backend's search thread) is waited on; one that
+    carries only ``ready`` (a sweep on the card) is polled; one that
+    carries neither (the plain version) has nothing in flight. Raises
     ``concurrent.futures.TimeoutError`` when the deadline passes first;
     with no deadline, the finish's own read-back waits."""
     ready = getattr(finish, "ready", None)
     if ready is None or deadline is None:
+        return
+    wait = getattr(finish, "wait", None)
+    if wait is not None:
+        if not wait(max(0.0, deadline - time.monotonic())):
+            raise concurrent.futures.TimeoutError(
+                "the dispatch's search did not complete in time")
         return
     while not _query(ready):
         if time.monotonic() >= deadline:
@@ -196,29 +203,30 @@ class ResilientBackend(MinerBackend):
                max_count: int = 1 << 32) -> SearchResult:
         args = (header80, difficulty_bits, start_nonce, max_count)
         with self._lock:
-            return self._resolve(self._launch(args), args)
+            return self._resolve(None, args)
 
     def search_async(self, header80: bytes, difficulty_bits: int,
                      start_nonce: int = 0,
                      max_count: int = 1 << 32
                      ) -> "concurrent.futures.Future":
         """Starts the search on the active rung (``launch``: with the CUDA
-        kernel the sweep is on the device when this returns) and returns
-        a future that the thread asking for its result finishes: the
-        read-back, re-validation, retries and step-down.
+        kernel the sweep is on the device when this returns, on the C++
+        rung on the backend's search thread) and returns a future that the
+        thread asking for its result finishes: the read-back,
+        re-validation, retries and step-down.
 
         Dispatches finish in issue order (asking for a later one finishes
         the earlier ones first) and under the one lock, so a dispatch
         retries or steps down to the end before the next one resolves,
         every later dispatch inherits the rung it landed on, and one
         started on a rung since stepped down from is searched again on the
-        new one. No worker thread: the caller validates and appends on the
-        host while the card sweeps, and nothing but the read-back sits
-        between a winner and the next launch. The reference hands the
-        whole search to a worker thread; on the card that form, and one
-        that only read back on a worker, cost more in thread handoffs and
-        contention for the interpreter lock than the overlap gained
-        (PERF.md, chip_smoke phase 6 a)."""
+        new one. No worker thread around the rung: the caller validates
+        and appends on the host while the search runs, and nothing but
+        the read-back sits between a winner and the next launch. The
+        reference hands the whole search to a worker thread; on the card
+        that form, and one that only read back on a worker, cost more in
+        thread handoffs and contention for the interpreter lock than the
+        overlap gained (PERF.md, chip_smoke phase 6 a)."""
         args = (header80, difficulty_bits, start_nonce, max_count)
         with self._lock:
             while self._pending and self._pending[0].cancelled():

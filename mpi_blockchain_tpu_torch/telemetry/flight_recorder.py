@@ -100,6 +100,13 @@ def register_network(net) -> None:
             _state["networks"].append(net)
 
 
+def registered_networks() -> list:
+    """The currently registered networks (meshwatch shards carry their
+    causal-log tails; the crash dump carries them in full)."""
+    with _lock:
+        return list(_state["networks"])
+
+
 def register_context(**kv) -> None:
     """Attach static context (config, seed, ...) to future dumps."""
     with _lock:

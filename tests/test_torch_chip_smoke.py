@@ -606,3 +606,42 @@ def test_phase_11_plan_and_knobs_are_what_mine_reads():
     assert chip_smoke.TRACE_TURNS == ("traced", "off", "off", "traced") * 3
     assert chip_smoke.OVERHEAD_ATTEMPTS[0] == {}
     assert len(chip_smoke.OVERHEAD_ATTEMPTS) == 4
+
+
+def test_phase_12_final_shard_check_needs_the_cards_watermarks(tmp_path):
+    from mpi_blockchain_tpu_torch import telemetry
+
+    telemetry.reset()
+    rc, summary = chip_smoke.run_cli(["mine", "--backend", "cpu",
+                                      "--difficulty", "8", "--blocks", "3",
+                                      "--mesh-obs", str(tmp_path)])
+    assert rc == 0
+    # A CPU rank carries no cuda:0 watermarks: the card's check refuses it.
+    with pytest.raises(chip_smoke.SmokeFailure, match="memory"):
+        chip_smoke.check_final_shard(str(tmp_path), summary, "cpu")
+    with pytest.raises(chip_smoke.SmokeFailure, match="hashes_tried_total"):
+        chip_smoke.check_final_shard(
+            str(tmp_path), {**summary, "hashes_tried": 1}, "cpu")
+
+
+def test_phase_12_flush_cost_prices_a_full_shard(tmp_path):
+    from mpi_blockchain_tpu_torch.meshwatch.pipeline import reset_profiler
+
+    reset_profiler()
+    chip_smoke.run_cli(["mine", "--backend", "cpu", "--difficulty", "8",
+                        "--blocks", "20"])
+    got = chip_smoke.flush_cost_ms(str(tmp_path), n=3)
+    assert set(got) == {"payload_ms", "dumps_ms", "flush_ms", "bytes",
+                        "pipeline_records"}
+    assert got["pipeline_records"] == 20 and got["bytes"] > 0
+    from mpi_blockchain_tpu_torch import chainwatch
+    assert not chainwatch.installed()
+
+
+def test_phase_12_run_module_reads_the_smokes_refusal():
+    got = chip_smoke.run_module("mpi_blockchain_tpu_torch.chainwatch",
+                                ["smoke"], 120)
+    assert got["rc"] == 2 and got["out"]["event"] == "error"
+    assert [name for name, *_ in chip_smoke.SMOKES] == [
+        "meshwatch", "chainwatch", "blocktrace"]
+    assert chip_smoke.MESH_OBS_TURNS == ("off", "obs", "obs", "off")

@@ -38,6 +38,12 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
     assert {"service", "perfwatch", "chainwatch", "telemetry", "models",
             "sim", "resilience", "ops", "backend", "blocktrace",
             "meshwatch", "meshprof", "dispatchwatch"} <= scanned
+    assert {"meshwatch/shard.py", "meshwatch/aggregate.py",
+            "meshwatch/server.py", "meshwatch/bubble.py",
+            "meshwatch/world.py", "meshwatch/__main__.py",
+            "meshprof/analyzer.py", "blocktrace/export.py",
+            "blocktrace/__main__.py", "chainwatch/__main__.py"} <= {
+        str(f.relative_to(PORT)) for f in _port_files() if PORT in f.parents}
     assert found == []
 
 

@@ -22,6 +22,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import threading
 import time
 
 import numpy as np
@@ -300,6 +301,68 @@ def test_chain_leaves_the_references_pipeline_records(mode):
         # block identity (unattributed).
         assert report["unattributed_segments"] == \
             ref_cp.critical_path_report(want)["unattributed_segments"] > 0
+
+
+def test_the_resilient_c_sweep_leaves_every_block_complete():
+    """Behind ``ResilientBackend`` the C++ sweep runs on its backend's
+    search thread from the issue, as the reference's runs on its dispatch
+    worker, so no block of the d12/n6 chain has a gap of 5% or more, in
+    either package."""
+    for miner_cls, cfg_cls, cp, pipe in (
+            (Miner, MinerConfig, critical_path, pipeline),
+            (RefMiner, RefConfig, ref_cp, ref_pipeline)):
+        pipe.reset_profiler()
+        kwargs = {} if miner_cls is Miner else {"log_fn": _quiet}
+        miner = miner_cls(cfg_cls(difficulty_bits=DIFFICULTY,
+                                  n_blocks=BLOCKS, backend="cpu"),
+                          pipeline=True, **kwargs)
+        miner.mine_chain()
+        report = cp.critical_path_report(pipe.profiler().records())
+        assert report["heights"] == list(range(1, BLOCKS + 1))
+        for h in report["heights"]:
+            block = report["blocks"][str(h)]
+            assert block["complete"], (miner_cls, h, block)
+            assert block["gap_pct"] < cp.COMPLETE_GAP_PCT, (miner_cls, h)
+
+
+#: Host work after each append, longer than any d12 search here.
+HOST_WORK_S = 0.03
+#: What a window may add to its C++ sweep: the span and the fault check
+#: around it on the search thread.
+WINDOW_SLACK_S = 0.005
+
+
+def test_the_c_sweeps_device_window_is_its_search(monkeypatch):
+    """The C++ sweep's device window counts the search and nothing the
+    host does meanwhile: with 30 ms of host work after each append, each
+    consumed dispatch's window lies between its issue and the end of its
+    sweep on the search thread, and lasts that sweep's time (within the
+    span and fault check around it)."""
+    from mpi_blockchain_tpu_torch import core
+
+    runs = []
+    real = core.cpu_search
+
+    def timed_search(*args):
+        t0 = time.perf_counter()
+        res = real(*args)
+        runs.append((t0, time.perf_counter(),
+                     threading.current_thread() is threading.main_thread()))
+        return res
+    monkeypatch.setattr(core, "cpu_search", timed_search)
+    pipeline.reset_profiler()
+    miner = Miner(MinerConfig(difficulty_bits=DIFFICULTY, n_blocks=BLOCKS,
+                              backend="cpu"), pipeline=True)
+    miner.mine_chain(on_block=lambda rec: time.sleep(HOST_WORK_S))
+    records = pipeline.profiler().records()
+    anchor = pipeline.profiler().at(0.0)
+    assert len(runs) == len(records) == BLOCKS
+    assert not any(on_main for _, _, on_main in runs)
+    for rec, (s, e, _) in zip(records, runs):
+        seg = {x["stage"]: x for x in rec["segments"]}
+        t0, t1 = seg["device"]["t0"] - anchor, seg["device"]["t1"] - anchor
+        assert seg["enqueue"]["t0"] - anchor <= t0 and t1 <= e, (rec, s, e)
+        assert e - s <= t1 - t0 <= e - s + WINDOW_SLACK_S, (rec, s, e)
 
 
 def _summary(fn, argv) -> dict:

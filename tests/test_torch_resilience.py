@@ -723,8 +723,9 @@ def test_async_dispatch_steps_down_single_flight():
                                   "poll_yield", "unbounded"])
 def test_dispatch_variants_forms_mine_the_oracles_chain(form):
     """Every form of search_async that ``tools/dispatch_variants`` times
-    mines the sequential oracle's chain; the worker forms search on the
-    worker thread."""
+    mines the sequential oracle's chain; on the C++ rung every form but
+    the raw backend's searches off the consuming thread (on the worker, or
+    on the rung's own search thread)."""
     import concurrent.futures
     import threading
 
@@ -748,8 +749,7 @@ def test_dispatch_variants_forms_mine_the_oracles_chain(form):
     oracle = Miner(cfg, pipeline=False)
     oracle.mine_chain()
     assert miner.node.save() == oracle.node.save()
-    on_worker = form in ("worker", "finish_on_worker")
-    assert threads and (threading.get_ident() not in threads) == on_worker
+    assert threads and (threading.get_ident() in threads) == (form == "raw")
     with pytest.raises(ValueError, match="unknown form"):
         dispatch_variants.make_backend("nope", cfg, worker)
 

@@ -188,6 +188,27 @@ then:
    rank with a complete bundle, none in the clean world) and
    ``...blocktrace smoke`` (two ranks, every height complete, both
    overhead bounds), each in a session of its own (``run_module``).
+13. the elastic mesh and forensics (``resilience.elastic``,
+   ``forensics``): (a) four ``mine --elastic --mesh-obs --events-dump``
+   ranks at d20/n6/b20 under the seeded ``mesh.rank_death`` plan
+   (``elastic_rank_death_world``), twice on the card and once on the C++
+   sweep: the victim exits 137 with no final shard and no dump, every
+   survivor evicts it at height 3, exits 0 on its rung with a chain the
+   C++ node accepts, and its dump is byte-identical across the three
+   worlds; the same world with no plan beside it, walls and each rank's
+   sweep launches (``COUNTING_ENTRY``) and restripe discards printed; (b)
+   the elastic smoke's SIGKILL world on the card: the survivors evict the
+   killed rank for ``dead-shard`` (the oracle's ``evict``) while still
+   mining, and each fires one ``stale_rank`` incident; (c) ``mine
+   --elastic --miners 4`` at the d20/n10 pin with a
+   ``parallel.collective`` fault: the logical miners shrink 4 -> 3, the
+   tip is the pin, beside the same run without the fault; (d) ``python -m
+   mpi_blockchain_tpu_torch.forensics --json --trace`` on 13 a's dump, on
+   ``sim --preset adversarial`` run on the card and on the adversarial
+   scenario preset: rc 0, every section, the attack audit exactly where
+   the dump holds attacks, a trace row for every node; (e) ``python -m
+   mpi_blockchain_tpu_torch.meshwatch skew-smoke`` with its ranks on the
+   card, in a session of its own.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -196,7 +217,7 @@ plan did not cause.
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line; with no CUDA device it fails at once. It takes about
-eight to nine minutes on one NVIDIA H100, the builds included.
+ten minutes on one NVIDIA H100, the builds included.
 """
 from __future__ import annotations
 
@@ -384,6 +405,31 @@ SMOKES = (("meshwatch", "mpi_blockchain_tpu_torch.meshwatch", "b"),
           ("chainwatch", "mpi_blockchain_tpu_torch.chainwatch", "c"),
           ("blocktrace", "mpi_blockchain_tpu_torch.blocktrace", "d"))
 SMOKE_TIMEOUT_S = 240
+# Phase 13: the elastic mesh and forensics. (a) the elastic smoke's
+# mesh.rank_death world (four ``mine --elastic`` ranks with ``--mesh-obs``
+# and ``--events-dump``) at this chain, on the card twice and on the C++
+# sweep once, and the same world with no plan; (c) ``mine --elastic
+# --miners 4`` at the d20/n10/b20 pin, with this ``parallel.collective``
+# fault (call 0 is the build; one search a block) and without; (d) the
+# adversarial scenario preset's dump, beside 13 a's and a card sim's.
+ELASTIC_CHAIN = ("--difficulty", "20", "--blocks", "6")
+ELASTIC_MESH_ARGS = ("mine", "--elastic", "--miners", "4", "--difficulty",
+                     "20", "--blocks", "10", "--batch-pow2", "20")
+ELASTIC_COLLECTIVE_FAULT = {"site": "parallel.collective", "kind": "raise",
+                            "call": 4, "times": 1}
+FORENSICS_SIM_ARGS = ("sim", "--preset", "adversarial")
+FORENSICS_ATTACK_ARGS = ("sim", "--preset", "adversarial-smoke")
+FORENSICS_TIMEOUT_S = 120
+# A rank process whose sweep launches can be read back: the port's CLI,
+# then the library's launch counter as the last line of stderr (a rank
+# that dies, killed or hard-exited, prints nothing).
+COUNTING_ENTRY = ["-c", "import json, sys\n"
+                  "from mpi_blockchain_tpu_torch.cli import main\n"
+                  "from mpi_blockchain_tpu_torch.ops import sha256_cuda\n"
+                  "rc = main(sys.argv[1:])\n"
+                  "print(json.dumps({'sweep_launches': sha256_cuda.launches"
+                  "}), file=sys.stderr)\n"
+                  "sys.exit(rc)\n"]
 
 
 class SmokeFailure(Exception):
@@ -3225,6 +3271,262 @@ def phase_mesh_obs(device) -> dict:
     return out
 
 
+def rank_launches(stderr: str) -> int:
+    """The sweep launches a ``COUNTING_ENTRY`` rank reported."""
+    lines = [ln for ln in stderr.splitlines()
+             if ln.startswith('{"sweep_launches"')]
+    check(bool(lines), f"no launch count on the rank's stderr: "
+          f"{stderr[-400:]}")
+    return json.loads(lines[-1])["sweep_launches"]
+
+
+def registry_total(shard: dict, name: str, **labels) -> float:
+    """A shard's ``name`` summed over the samples carrying ``labels``."""
+    return sum(m["value"] for m in shard["registry"].get(name, [])
+               if all(m["labels"].get(k) == v for k, v in labels.items()))
+
+
+def clean_elastic_world(tmp: pathlib.Path) -> dict:
+    """13 a's world with no fault plan: every rank exits 0 with no
+    eviction, on ``cuda:cuda``. Returns the world's wall, the ranks'
+    ``mine_chain`` walls and their launches."""
+    from mpi_blockchain_tpu_torch.meshwatch.world import reap
+    from mpi_blockchain_tpu_torch.resilience import __main__ as res
+
+    t0 = time.perf_counter()
+    procs = res._elastic_ranks(tmp, "clean", "cuda",
+                               lambda r: list(ELASTIC_CHAIN),
+                               entry=COUNTING_ENTRY)
+    try:
+        got = {r: p.communicate(timeout=300) for r, p in procs.items()}
+    finally:
+        reap(procs.values())
+    wall = time.perf_counter() - t0
+    rcs = {r: p.returncode for r, p in procs.items()}
+    check(set(rcs.values()) == {0}, f"13a clean world: rcs {rcs}; "
+          f"{[err[-400:] for _, err in got.values()]}")
+    summaries = {r: res._last_json(out) for r, (out, _) in got.items()}
+    for r, summary in summaries.items():
+        check(summary["mesh"]["evicted"] == [] and summary["height"]
+              == int(ELASTIC_CHAIN[ELASTIC_CHAIN.index("--blocks") + 1]),
+              f"13a clean world rank {r}: {summary}")
+        check_no_step_down(summary, "cuda:cuda", f"13a clean rank {r}")
+    return {"wall_s": wall,
+            "mine_wall_s": {r: v["wall_s"] for r, v in summaries.items()},
+            "launches": {r: rank_launches(err)
+                         for r, (_, err) in got.items()}}
+
+
+def forensics_run(dump: str, trace: str) -> dict:
+    """``python -m mpi_blockchain_tpu_torch.forensics --events DUMP
+    --json --trace TRACE`` in a process of its own: rc 0, the report with
+    its sections (``attack_audit`` non-empty exactly when the dump holds
+    ``attack_*`` events), and a trace row for every node that logged."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_blockchain_tpu_torch.forensics",
+         "--events", dump, "--json", "--trace", trace],
+        capture_output=True, text=True, env=env, cwd=REPO_ROOT,
+        timeout=FORENSICS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"forensics on {dump}: rc "
+          f"{proc.returncode}: {proc.stderr[-800:]}")
+    report = json.loads(proc.stdout)
+    with open(dump) as f:
+        nodes = json.load(f)["nodes"]
+    attacked = any(str(e.get("kind", "")).startswith("attack_")
+                   for events in nodes.values() for e in events)
+    check({"fork_tree", "reorg_audit", "convergence", "attack_audit"}
+          <= set(report) and bool(report["attack_audit"]) == attacked,
+          f"forensics on {dump}: sections {sorted(report)}, attack audit "
+          f"{bool(report['attack_audit'])}, attack events {attacked}")
+    with open(trace) as f:
+        rows = {e["args"]["name"] for e in json.load(f)["traceEvents"]
+                if e["ph"] == "M"}
+    # A row for every node that logged an event (the bus pseudo-node of a
+    # run that lost no delivery logs none).
+    logged = {f"node {e['node']}" for events in nodes.values()
+              for e in events}
+    check(rows == logged and logged,
+          f"forensics trace of {dump}: rows {sorted(rows)}, nodes that "
+          f"logged {sorted(logged)}")
+    tree, conv = report["fork_tree"], report["convergence"]
+    return {"nodes": len(nodes), "events": report["events_merged"],
+            "blocks": len(tree["blocks"]),
+            "orphaned": len(tree["orphaned"]), "reorgs": conv["reorgs"],
+            "converged": conv["converged"], "attacks": attacked,
+            "wall_s": wall}
+
+
+def phase_elastic(device) -> dict:
+    """Phase 13: the elastic mesh and forensics on the card. (a) the
+    seeded ``mesh.rank_death`` world twice on the card and once on the C++
+    sweep, and a clean world; (b) the elastic smoke's SIGKILL world; (c)
+    ``mine --elastic --miners 4`` with a collective fault and without; (d)
+    forensics over 13 a's dump, a card sim's and the adversarial scenario
+    preset's; (e) the skew smoke."""
+    from mpi_blockchain_tpu_torch import core, telemetry
+    from mpi_blockchain_tpu_torch.meshwatch.aggregate import (rank_status,
+                                                              read_shards)
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+    from mpi_blockchain_tpu_torch.resilience import __main__ as res
+
+    card = nvidia_smi("name,power.limit")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as td:
+        tmp = pathlib.Path(td)
+        # (a) the seeded death, on the card twice and on the C++ sweep.
+        runs = {}
+        for name, on in (("cuda0", "cuda"), ("cuda1", "cuda"),
+                         ("cpu", "cpu")):
+            runs[name] = res.elastic_rank_death_world(
+                tmp, name, on, chain=list(ELASTIC_CHAIN),
+                entry=COUNTING_ENTRY)
+        victim = runs["cuda0"]["victim"]
+        check(all(r["victim"] == victim for r in runs.values()),
+              f"13a victims {[r['victim'] for r in runs.values()]}")
+        for r, dump in runs["cuda0"]["dumps"].items():
+            check(dump == runs["cuda1"]["dumps"][r]
+                  == runs["cpu"]["dumps"][r],
+                  f"13a rank {r}: dumps differ between the card's two "
+                  f"worlds and the C++ sweep's")
+        launches = {name: {r: rank_launches(run["stderr"][r])
+                           for r in run["summaries"]}
+                    for name, run in runs.items()}
+        check(all(n > 0 for name in ("cuda0", "cuda1")
+                  for n in launches[name].values())
+              and set(launches["cpu"].values()) == {0},
+              f"13a launches {launches}")
+        restripe = {r: registry_total(shard, "speculative_discards_total",
+                                      reason="restripe")
+                    for r, shard in runs["cuda0"]["shards"].items()}
+        clean = clean_elastic_world(tmp)
+        out["death"] = {
+            "victim": victim, "height": res.RANK_DEATH_HEIGHT,
+            "wall_s": {name: run["wall_s"] for name, run in runs.items()},
+            "mine_wall_s": {name: {r: v["wall_s"] for r, v in
+                                   run["summaries"].items()}
+                            for name, run in runs.items()},
+            "launches": launches, "restripe_discards": restripe,
+            "dump_bytes": {r: len(d) for r, d in
+                           runs["cuda0"]["dumps"].items()},
+            "clean": clean}
+        log(f"phase 13a four mine --elastic ranks (d20/n6/b20) under the "
+            f"seeded mesh.rank_death plan: victim {victim} exited 137 with "
+            f"no final shard and no dump at height {res.RANK_DEATH_HEIGHT}, "
+            f"every survivor evicted it there, exited 0 on cuda:cuda with a "
+            f"valid chain; survivor dumps byte-identical across two card "
+            f"worlds and the C++ sweep's ({out['death']['dump_bytes']} "
+            f"bytes); world walls {out['death']['wall_s']} s, mine_chain "
+            f"walls {out['death']['mine_wall_s']} s; the clean world "
+            f"{clean['wall_s']:.3f} s (mine_chain {clean['mine_wall_s']} "
+            f"s); sweep launches {launches}, clean {clean['launches']}; "
+            f"speculative discards for restripe {restripe}; {card}")
+
+        # (b) a SIGKILLed rank, evicted through the shard oracle.
+        got = res.smoke_elastic_sigkill(tmp, "cuda", entry=COUNTING_ENTRY)
+        status = rank_status(read_shards(tmp / "sigkill" / "mesh"),
+                             stall_s=2.0)["ranks"][str(got["victim"])]
+        check(status["recommended_action"] == "evict",
+              f"13b the victim's oracle verdict {status}")
+        incidents = {r: registry_total(shard, "incidents_total",
+                                       rule="stale_rank")
+                     for r, shard in got["shards"].items()}
+        check(set(incidents.values()) == {1},
+              f"13b stale_rank incidents by survivor {incidents}")
+        out["sigkill"] = {
+            "victim": got["victim"], "oracle": status["stale_reason"],
+            "eviction_heights": got["eviction_heights"],
+            "blocks": got["blocks"], "difficulty": got["difficulty"],
+            "wall_s": got["wall_s"],
+            "mine_wall_s": {r: v["wall_s"]
+                            for r, v in got["summaries"].items()},
+            "launches": {r: rank_launches(err)
+                         for r, err in got["stderr"].items()},
+            "stale_rank_incidents": incidents}
+        log(f"phase 13b four mine --elastic ranks on the card, rank "
+            f"{got['victim']} SIGKILLed mid-run: the oracle reads it "
+            f"{status['stale_reason']} ({status['recommended_action']}), "
+            f"every survivor evicted it (heights "
+            f"{got['eviction_heights']} of {got['blocks']} d"
+            f"{got['difficulty']} blocks), exited 0 on cuda:cuda with a "
+            f"valid chain and fired one stale_rank incident; world wall "
+            f"{got['wall_s']:.3f} s, mine_chain walls "
+            f"{out['sigkill']['mine_wall_s']} s, sweep launches "
+            f"{out['sigkill']['launches']}; {card}")
+
+        # (c) the in-process flavor: a collective fault shrinks 4 -> 3.
+        plan = tmp / "collective.json"
+        plan.write_text(json.dumps({"version": 1, "faults": [
+            ELASTIC_COLLECTIVE_FAULT]}))
+        rows = {}
+        for form, extra in (("clean", []), ("fault",
+                                            ["--fault-plan", str(plan)])):
+            telemetry.reset()
+            sha256_cuda.launches = 0
+            rc, summary = run_cli([*ELASTIC_MESH_ARGS, *extra])
+            n = sha256_cuda.launches
+            what = f"13c mine --elastic --miners 4 ({form})"
+            check(rc == 0 and summary.get("tip_hash")
+                  == PINNED_TIPS[(20, 10, 20)], f"{what}: rc {rc}, {summary}")
+            mesh = summary["mesh"]["device_mesh"]
+            want = (3, True) if form == "fault" else (4, False)
+            check((mesh["n_live"], mesh["shrunk"]) == want
+                  and summary["backend"] == "cuda" and n > 0,
+                  f"{what}: {mesh}, backend {summary['backend']}, "
+                  f"{n} launches")
+            rows[form] = {"wall_s": summary["wall_s"], "launches": n,
+                          "n_live": mesh["n_live"]}
+        rows["shrink_cost_s"] = rows["fault"]["wall_s"] - \
+            rows["clean"]["wall_s"]
+        out["mesh"] = rows
+        log(f"phase 13c mine --elastic --miners 4 (d20/n10/b20): the "
+            f"parallel.collective fault at call "
+            f"{ELASTIC_COLLECTIVE_FAULT['call']} shrank the logical miners "
+            f"4 -> 3 and the tip is the pin; wall {rows['fault']['wall_s']} "
+            f"s against {rows['clean']['wall_s']} s without the fault (the "
+            f"shrink's cost {rows['shrink_cost_s']:+.3f} s); sweep launches "
+            f"{rows['fault']['launches']} and {rows['clean']['launches']}; "
+            f"{card}")
+
+        # (d) forensics over an elastic dump and two sims' dumps.
+        sims = {}
+        for name, argv in (("sim", FORENSICS_SIM_ARGS),
+                           ("attack", FORENSICS_ATTACK_ARGS)):
+            dump = str(tmp / f"{name}.json")
+            telemetry.reset()
+            rc, _ = run_cli([*argv, "--events-dump", dump])
+            check(rc == 0, f"13d {' '.join(argv)}: rc {rc}")
+            sims[name] = dump
+        elastic_dump = str(tmp / "cuda0" / "dump_0.json")
+        out["forensics"] = {
+            name: forensics_run(dump, str(tmp / f"trace_{name}.json"))
+            for name, dump in (("elastic", elastic_dump),
+                               ("sim", sims["sim"]),
+                               ("attack", sims["attack"]))}
+        check(out["forensics"]["attack"]["attacks"],
+              "13d: the adversarial scenario's dump holds no attack")
+        log(f"phase 13d python -m mpi_blockchain_tpu_torch.forensics --json "
+            f"--trace: rc 0 with the fork tree, reorg audit and convergence "
+            f"on 13 a's rank-0 dump, on sim --preset adversarial on the card "
+            f"and on the adversarial scenario preset (with its attack "
+            f"audit), a trace row for every node: {out['forensics']}")
+
+    # (e) the skew smoke, its ranks on the card.
+    res_e = run_module("mpi_blockchain_tpu_torch.meshwatch", ["skew-smoke"],
+                       SMOKE_TIMEOUT_S)
+    check(res_e["rc"] == 0 and res_e["out"].get("ok") is True,
+          f"phase 13e skew smoke on the card: rc {res_e['rc']}, "
+          f"{res_e['out']}, {res_e['err']}")
+    out["skew"] = {**res_e["out"], "wall_s": res_e["wall_s"]}
+    log(f"phase 13e mpi_blockchain_tpu_torch.meshwatch skew-smoke (two "
+        f"same-seed four-rank --elastic worlds on the card, each rank held "
+        f"to cuda:cuda): {res_e['out']}, {res_e['wall_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3274,6 +3576,7 @@ def main() -> int:
         serve = phase_serve(device)
         trace = phase_trace(device, startup_nvcc)
         mesh_obs = phase_mesh_obs(device)
+        elastic = phase_elastic(device)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -3316,9 +3619,15 @@ def main() -> int:
             turn: [r["launches"] for r in rows]
             for turn, rows in mesh_obs["miner"].items()},
         "launches_mesh_obs_fused_d24_n1000": mesh_obs["fused"]["sweeps"],
+        "launches_elastic": {
+            "a_rank_death": elastic["death"]["launches"],
+            "a_clean": elastic["death"]["clean"]["launches"],
+            "b_sigkill": elastic["sigkill"]["launches"],
+            "c_mesh": {form: elastic["mesh"][form]["launches"]
+                       for form in ("fault", "clean")}},
         "bench": bench, "mesh8": mesh, "resilience": resilience,
         "sim": sim, "serve": serve, "trace": trace,
-        "mesh_obs": mesh_obs}, {
+        "mesh_obs": mesh_obs, "elastic": elastic}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",

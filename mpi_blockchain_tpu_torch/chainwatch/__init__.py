@@ -130,8 +130,8 @@ def evaluate(height: int | None = None, source: str = "",
 
 def notify_eviction(rank: int, reason: str, height: int = 0,
                     live=None) -> dict | None:
-    """The eviction seam of the reference's elastic mesh (not ported
-    yet): an eviction is a definitive membership loss, so it fires the
+    """The eviction seam of the elastic mesh (``ElasticWorld.evict``):
+    an eviction is a definitive membership loss, so it fires the
     ``stale_rank`` incident at once (no debounce wait on the next
     cadence) and records the surviving membership for bundles. No-op
     while disarmed or off."""

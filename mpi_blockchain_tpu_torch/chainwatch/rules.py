@@ -243,9 +243,10 @@ class StaleRank(Rule):
     ``mesh_rank_failed`` (a mesh aggregator's announcements) or
     ``rank_death`` since the last sample. Membership loss is definitive
     (no debounce), and the episode stays open until the ring goes quiet,
-    so one lost rank is one incident. The port emits none of these events
-    yet (the elastic mesh and the aggregator are not ported); the rule
-    watches the ring all the same."""
+    so one lost rank is one incident. The port emits all four: the
+    elastic mesh emits ``mesh_shrunk`` and ``rank_death``
+    (``resilience/elastic.py``), the mesh aggregator ``mesh_rank_stale``
+    and ``mesh_rank_failed`` (``meshwatch/aggregate.py``)."""
 
     name = "stale_rank"
     severity = "critical"

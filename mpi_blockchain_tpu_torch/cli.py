@@ -11,6 +11,9 @@
     python -m mpi_blockchain_tpu_torch mine --preset tpu-mesh8 [--fused]
     python -m mpi_blockchain_tpu_torch mine --difficulty 20 --blocks 10 \
         --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
+    python -m mpi_blockchain_tpu_torch mine --elastic --process-id 1 \
+        --num-processes 4 --mesh-obs DIR --events-dump causal_1.json
+    python -m mpi_blockchain_tpu_torch mine --elastic --miners 4
     python -m mpi_blockchain_tpu_torch bench --mode sweep --seconds 5
     python -m mpi_blockchain_tpu_torch bench --mode chain --blocks 1000
     python -m mpi_blockchain_tpu_torch verify --chain chain.bin --difficulty 20
@@ -39,6 +42,21 @@ command, and rank 0 alone writes ``--out``, ``--checkpoint`` and the
 summary. ``bench`` measures the sweep rate (``--mode sweep``) or a whole
 chain's wall (``--mode chain``) and prints one JSON payload
 (``bench_lib.py``).
+
+``mine --elastic`` survives a dead peer (``resilience/elastic.py``). As
+one rank of a process-per-rank world (``--process-id/--num-processes``,
+or ``MPIBT_MESH_RANK``/``MPIBT_MESH_WORLD``, and no ``--coordinator``) it
+sweeps its stripe of the nonce space, evicts a peer the ``--mesh-obs``
+shard oracle confirms dead (or a seeded ``mesh.rank_death`` fault kills),
+re-stripes over the survivors and mines on; every rank prints its own
+summary, with a ``mesh`` object. With ``--miners N`` on the cuda backend
+it mines through ``ElasticMeshBackend``, which shrinks its logical miners
+on a suspected rank loss (``summary["mesh"]["device_mesh"]``).
+``--events-dump PATH`` writes the rank's causal log (membership changes
+and mined blocks), the reference's bytes for the same run, which ``python
+-m mpi_blockchain_tpu_torch.forensics`` reads. ``--resume`` restores the
+checkpoint sidecar's shrunken membership. ``--elastic`` refuses
+``--coordinator`` and ``--fused``.
 
 ``sim`` runs BASELINE config 5, competing miner groups that fork in a
 partition and reconcile by longest-chain reorg (``simulation.py``), on the
@@ -205,10 +223,11 @@ def _config_from(args) -> MinerConfig:
                        device=args.device)
 
 
-def _resume(miner, path: str, cfg) -> str | None:
+def _resume(miner, path: str, cfg, world=None) -> str | None:
     """Puts the chain of the --resume checkpoint into ``miner``, a torn
-    tail truncated to the last valid block; returns an error message, or
-    None."""
+    tail truncated to the last valid block, and the sidecar's membership
+    into the elastic ``world`` when there is one; returns an error
+    message, or None."""
     from .resilience.policy import call_with_retry
     from .telemetry import heartbeat
     from .telemetry.events import emit_event
@@ -226,6 +245,11 @@ def _resume(miner, path: str, cfg) -> str | None:
     except (OSError, ValueError) as e:
         return str(e)
     miner.node = node
+    if world is not None and report.get("mesh"):
+        # The sidecar's membership restores the shrunken world: a resumed
+        # survivor keeps its re-striped share instead of re-assuming the
+        # seed world (and re-overlapping stripes the survivors re-covered).
+        world.restore(report["mesh"])
     # The heartbeat shows the resumed height before the first sweep.
     heartbeat("miner_heartbeat").set(node.height)
     emit_event({"event": "checkpoint_resumed", "height": node.height,
@@ -304,6 +328,30 @@ def _agree_on_resume(miner, err: str | None) -> str | None:
     return err
 
 
+def _elastic_miner(args, cfg):
+    """The ``--elastic`` miner and its world: an ``ElasticMiner`` striped
+    over this rank's ``ElasticWorld``, searching through
+    ``ElasticMeshBackend`` when the cuda backend splits rounds over more
+    than one logical miner. Returns (miner, world)."""
+    from .resilience.elastic import (ElasticMeshBackend, ElasticMiner,
+                                     ElasticWorld)
+
+    rank, world_size = _mesh_identity(args)
+    obs = args.mesh_obs or os.environ.get("MPIBT_MESH_OBS") or None
+    if world_size > 1 and obs is None:
+        # Without the shard oracle the supervisor is blind: a SIGKILLed
+        # peer is never evicted and its stripes never re-covered. Seeded
+        # mesh.rank_death plans still work (the plan names the deaths),
+        # so warn rather than refuse.
+        print("elastic: multi-rank world has no --mesh-obs/"
+              "MPIBT_MESH_OBS shard oracle — dead peers will not be "
+              "detected or evicted", file=sys.stderr, flush=True)
+    world = ElasticWorld(world_size, rank, obs_dir=obs)
+    backend = (ElasticMeshBackend(cfg)
+               if cfg.backend == "cuda" and cfg.n_miners > 1 else None)
+    return ElasticMiner(cfg, world, backend=backend), world
+
+
 def cmd_mine(args) -> int:
     cfg = _config_from(args)
     if args.serve is not None and args.fused:
@@ -319,6 +367,16 @@ def cmd_mine(args) -> int:
             "--serve with --coordinator is not supported: the door's "
             "templates would exist on rank 0 alone, and the ranks must "
             "search the same header; serve from a single process")
+    if args.elastic and args.coordinator:
+        raise ConfigError(
+            "--elastic cannot ride a torch.distributed world (a gloo "
+            "world's size is fixed at init and cannot shrink); run "
+            "elastic ranks as independent processes sharing --mesh-obs")
+    if args.elastic and args.fused:
+        raise ConfigError(
+            "--elastic needs the per-block miner (drop --fused): the "
+            "fused device loop has no per-block supervision point to "
+            "evict and re-stripe at")
     if args.fused and args.coordinator:
         raise ConfigError(
             "--fused with --coordinator needs a collective inside the "
@@ -347,7 +405,10 @@ def _mine(args, cfg, group, is_main: bool) -> int:
         if not args.checkpoint:
             raise ConfigError("--checkpoint-every needs --checkpoint PATH "
                               "(where to save)")
-    if args.fused:
+    world = None
+    if args.elastic:
+        miner, world = _elastic_miner(args, cfg)
+    elif args.fused:
         miner = FusedMiner(cfg, blocks_per_call=args.blocks_per_call)
     elif group is not None:
         from .backend import backend_from_config
@@ -355,13 +416,18 @@ def _mine(args, cfg, group, is_main: bool) -> int:
     else:
         miner = Miner(cfg)
     if args.resume:
-        err = _resume(miner, args.resume, cfg)
+        err = _resume(miner, args.resume, cfg, world)
         if group is not None:
             err = _agree_on_resume(miner, err)
         if err is not None:
             print(json.dumps({"event": "chain_mined", "error": err},
                              sort_keys=True))
             return 1
+
+    def membership():
+        # The elastic world's membership rides every checkpoint sidecar.
+        return world.membership() if world is not None else None
+
     # --blocks is the target height, so a resumed run mines the rest.
     remaining = max(0, cfg.n_blocks - miner.node.height)
     save = None
@@ -378,7 +444,8 @@ def _mine(args, cfg, group, is_main: bool) -> int:
             # segment: it sits on the host between sweeps.
             with profiler().segment_on_last("checkpoint"):
                 call_with_retry(
-                    lambda: save_chain(miner.node, args.checkpoint, cfg),
+                    lambda: save_chain(miner.node, args.checkpoint, cfg,
+                                       mesh=membership()),
                     site="checkpoint.write")
     service_state = service_summary = None
     if args.serve is not None:
@@ -416,7 +483,7 @@ def _mine(args, cfg, group, is_main: bool) -> int:
             f.write(miner.node.save())
     if args.checkpoint:
         from .utils.checkpoint import save_chain
-        save_chain(miner.node, args.checkpoint, cfg)
+        save_chain(miner.node, args.checkpoint, cfg, mesh=membership())
     summary = {
         "event": "chain_mined",
         "config": dataclasses.asdict(cfg),
@@ -453,6 +520,20 @@ def _mine(args, cfg, group, is_main: bool) -> int:
             "speculative_discards": int(default_registry().total(
                 "speculative_discards_total")),
         }
+    if world is not None:
+        summary["mesh"] = world.summary()
+        if hasattr(miner.backend, "n_live"):   # ElasticMeshBackend
+            summary["mesh"]["device_mesh"] = miner.backend.summary()
+        if args.events_dump:
+            # As sim's --events-dump: a dump failure must not mask the
+            # run's own outcome.
+            try:
+                world.dump_causal(args.events_dump,
+                                  meta={"target_blocks": cfg.n_blocks,
+                                        "difficulty_bits":
+                                            cfg.difficulty_bits})
+            except OSError as e:
+                print(f"events-dump failed: {e}", file=sys.stderr)
     degradations = getattr(backend, "degradations", [])
     if degradations:
         # Converged after stepping down: rc 0, but loudly. The run
@@ -841,6 +922,24 @@ def main(argv: list[str] | None = None) -> int:
                              "(0 = ephemeral) while mining: /submit "
                              "/tx_status /chain /template; not with "
                              "--fused")
+    p_mine.add_argument("--elastic", action="store_true",
+                        help="rank-death survival: this rank sweeps its "
+                             "stripe of the nonce space, evicts peers the "
+                             "--mesh-obs shard oracle confirms dead, "
+                             "re-stripes over the survivors and keeps "
+                             "mining (rank and world from --process-id/"
+                             "--num-processes or MPIBT_MESH_RANK/"
+                             "MPIBT_MESH_WORLD); with --miners N on the "
+                             "cuda backend the searches run under the "
+                             "MPIBT_COLLECTIVE_TIMEOUT watchdog and the "
+                             "logical miners shrink on suspicion; not "
+                             "with --coordinator or --fused")
+    p_mine.add_argument("--events-dump", metavar="PATH", default=None,
+                        help="with --elastic: write this rank's Lamport-"
+                             "stamped causal log (mined blocks and "
+                             "membership changes) to PATH on exit, the "
+                             "same bytes for same-seed mesh.rank_death "
+                             "runs")
     p_mine.set_defaults(fn=cmd_mine)
 
     p_verify = sub.add_parser("verify", help="validate a saved chain file")

@@ -1,5 +1,5 @@
 """CLI: python -m mpi_blockchain_tpu_torch.meshwatch
-        {merge,report,watch,smoke,bubble,pipeline-smoke}
+        {merge,report,watch,smoke,bubble,pipeline-smoke,skew-smoke}
 
 The port's copy of the reference's meshwatch CLI.
 
@@ -34,8 +34,12 @@ dominates every block's critical path; ``bubble`` prints the raw
 measurement payload. Both run the reference's audit on the C++ sweep
 (``bubble.py`` says why).
 
-The reference's ``skew-smoke`` mines ``--elastic`` worlds and comes with
-the elastic mesh.
+``skew-smoke``: two same-seed 4-rank ``--elastic`` worlds must join the
+same (site, round, rank) skew shape (the structural half of the report is
+deterministic; the millisecond values are weather), and the report's
+``max_skew_ms`` must pass the ``collective_skew`` absolute budget through
+the perfwatch detector. Its ranks mine on the card unless ``--device
+cpu``, each held to its rung with no retry or step-down.
 """
 from __future__ import annotations
 
@@ -344,6 +348,135 @@ def cmd_pipeline_smoke(args) -> int:
     return 0
 
 
+#: The skew smoke's world: ranks, blocks and difficulty (the reference's).
+SKEW_WORLD, SKEW_BLOCKS, SKEW_DIFFICULTY = 4, 8, 8
+
+
+def _skew_world(device: str) -> list[dict]:
+    """One same-seed ``--elastic`` world: every rank steps the same
+    heights in lockstep (the ``block.step`` skew spans), mines its stripe
+    on ``device``'s rung with no retry or step-down, writes its shard and
+    exits 0. Returns the final shards."""
+    import tempfile
+
+    from .world import reap, rung_fault, spawn_rank
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = str(pathlib.Path(tmp) / "mesh")
+        procs = [spawn_rank(r, SKEW_WORLD, obs,
+                            ["--elastic", "--difficulty",
+                             str(SKEW_DIFFICULTY), "--blocks",
+                             str(SKEW_BLOCKS)], device)
+                 for r in range(SKEW_WORLD)]
+        try:
+            outs = []
+            for p in procs:
+                out, err = p.communicate(timeout=180)
+                if p.returncode != 0:
+                    raise RuntimeError(
+                        f"skew-smoke rank failed rc={p.returncode}: "
+                        f"{err[-800:]}")
+                outs.append(out)
+        finally:
+            reap(procs)
+        shards = read_shards(obs)
+        for shard in shards:
+            fault = rung_fault(shard["rank"], device, shard,
+                               outs[shard["rank"]])
+            if fault:
+                raise RuntimeError(f"skew-smoke: {fault}")
+        return shards
+
+
+def cmd_skew_smoke(args) -> int:
+    """The skew-smoke gate (meshprof):
+
+    1. **determinism**: two same-seed 4-rank elastic worlds give mesh-skew
+       reports of the same structural shape (world, per-site rounds x
+       ranks; the millisecond values are weather and left out), and
+       re-analyzing one shard set twice gives the same report
+       (``analyze_skew`` is a pure function). A determinism failure fails
+       outright, never retried;
+    2. **bound**: the report's ``max_skew_ms`` passes the
+       ``collective_skew`` SECTION_BOUNDS budget through the perfwatch
+       detector, best of at most 3 (clock offsets are normalized out, so
+       a failure means a rank stalled seconds inside the lockstep step).
+    """
+    from ..meshprof.analyzer import analyze_skew, skew_shape
+    from ..perfwatch.detector import check_candidate
+    from ..perfwatch.history import DEFAULT_HISTORY_NAME, HistoryStore
+    from .world import RUNG, check_device
+
+    check_device(args.device)
+    world, blocks = SKEW_WORLD, SKEW_BLOCKS
+    repo_root = pathlib.Path(__file__).resolve().parent.parent.parent
+    store = HistoryStore(repo_root / DEFAULT_HISTORY_NAME)
+    try:
+        shard_runs = [_skew_world(args.device) for _ in range(2)]
+    except RuntimeError as e:
+        print(f"skew-smoke: {e}", file=sys.stderr)
+        return 1
+    reports = [analyze_skew(s) for s in shard_runs]
+
+    # 1a. pure re-analysis: same shards, the same report.
+    if json.dumps(analyze_skew(shard_runs[0]), sort_keys=True) != \
+            json.dumps(reports[0], sort_keys=True):
+        print("skew-smoke: analyze_skew is not deterministic over the "
+              "same shards", file=sys.stderr)
+        return 1
+    # 1b. cross-run structural determinism.
+    shapes = [json.dumps(skew_shape(r), sort_keys=True) for r in reports]
+    if shapes[0] != shapes[1]:
+        print(f"skew-smoke: same-seed runs joined different shapes:\n"
+              f"  {shapes[0]}\n  {shapes[1]}", file=sys.stderr)
+        return 1
+    step = reports[0]["sites"].get("block.step")
+    if (step is None or step["ranks"] != list(range(world))
+            or step["rounds"] < blocks or reports[0]["straggler_rank"] < 0):
+        print(f"skew-smoke: block.step did not join all {world} ranks "
+              f"x {blocks} rounds: {skew_shape(reports[0])}",
+              file=sys.stderr)
+        return 1
+
+    # 2. bound gate, best of at most 3 (the first two runs count as reads).
+    report = None
+    for attempt, rep in enumerate(reports + [None]):
+        if rep is None:
+            try:
+                rep = analyze_skew(_skew_world(args.device))
+            except RuntimeError as e:
+                print(f"skew-smoke: {e}", file=sys.stderr)
+                return 1
+        report = rep
+        payload = {"max_skew_ms": rep["max_skew_ms"],
+                   "straggler_rank": rep["straggler_rank"],
+                   "backend": RUNG[args.device].split(":")[0],
+                   "mesh": f"elastic{world}", "n_blocks": blocks,
+                   "world": world}
+        finding = check_candidate(store, "collective_skew", payload)
+        if finding.verdict != "regression":
+            break
+        print(f"skew-smoke: read {attempt + 1} dirty "
+              f"(max_skew_ms {rep['max_skew_ms']})", file=sys.stderr)
+    if finding.verdict == "regression":
+        print(f"skew-smoke: skew over budget: {finding.render()}",
+              file=sys.stderr)
+        return 1
+    step = report["sites"]["block.step"]
+    print(json.dumps({
+        "event": "skew_smoke", "ok": True,
+        "world": world, "blocks": blocks,
+        "site": "block.step",
+        "rounds": step["rounds"],
+        "straggler_rank": step["straggler_rank"],
+        "straggler_lag_ms": step["straggler_lag_ms"],
+        "max_skew_ms": report["max_skew_ms"],
+        "idle_chip_ms": step["idle_chip_ms"],
+        "verdict": finding.verdict,
+    }, sort_keys=True))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m mpi_blockchain_tpu_torch.meshwatch",
@@ -408,6 +541,16 @@ def main(argv: list[str] | None = None) -> int:
                                 "chain and device-dominant blocks, on the "
                                 "C++ sweep")
     p_psm.set_defaults(fn=cmd_pipeline_smoke)
+
+    p_ssm = sub.add_parser("skew-smoke",
+                           help="deterministic 4-rank --elastic mesh-skew "
+                                "join + the collective_skew absolute "
+                                "budget")
+    p_ssm.add_argument("--device", choices=DEVICES, default="cuda",
+                       help="where the ranks mine: the CUDA sweep on the "
+                            "card, or the C++ sweep; the CPU only when "
+                            "asked for")
+    p_ssm.set_defaults(fn=cmd_skew_smoke)
 
     args = parser.parse_args(argv)
     try:

@@ -150,8 +150,9 @@ def merge_shards(shards: list[dict]) -> dict:
 def recommended_action(status: str, stale_reason: str | None = None) -> str:
     """The machine-readable recovery verdict for one rank's
     classification — the ONE mapping every ``/healthz`` reader (and
-    the reference's elastic supervisor, not ported yet) shares, so
-    "what should happen to this rank" is decided once, not per caller:
+    the elastic supervisor, ``resilience/elastic.confirmed_dead``)
+    shares, so "what should happen to this rank" is decided once, not per
+    caller:
 
     * ``none``    — ``ok``/``finished``: leave it alone.
     * ``restart`` — ``stale`` with ``no-progress``: the process is

@@ -1,10 +1,10 @@
 """Worlds of mesh-observed ``mine`` processes, for the multi-rank smokes.
 
-The reference's ``meshwatch``, ``chainwatch`` and ``blocktrace`` smokes
-each spawn their ranks the same way: one ``mine --mesh-obs DIR`` process
-a rank, labeled through ``MPIBT_MESH_RANK``/``MPIBT_MESH_WORLD``, with
-the shard flusher at 0.2 s. The port's three smokes share this one copy,
-and each takes the ranks' device:
+The reference's ``meshwatch``, ``chainwatch``, ``blocktrace``, skew and
+elastic smokes each spawn their ranks the same way: one ``mine --mesh-obs
+DIR`` process a rank, labeled through ``MPIBT_MESH_RANK``/
+``MPIBT_MESH_WORLD``, with the shard flusher at 0.2 s. The port's smokes
+share this one copy, and each takes the ranks' device:
 
 * ``cuda``: every rank mines on the card (the CUDA sweep behind
   ``ResilientBackend``); with no card the smoke fails at once with the
@@ -42,9 +42,12 @@ def device_args(device: str) -> list[str]:
 
 
 def spawn_rank(rank: int, world: int, obs_dir, argv, device: str,
-               extra_env: dict | None = None) -> subprocess.Popen:
+               extra_env: dict | None = None,
+               entry: list[str] | None = None) -> subprocess.Popen:
     """Starts one rank: ``mine --mesh-obs obs_dir`` on ``device`` with the
-    extra ``argv``, stdout and stderr piped."""
+    extra ``argv``, stdout and stderr piped. ``entry`` replaces the
+    interpreter arguments that run the CLI (``-m
+    mpi_blockchain_tpu_torch``): a caller may wrap ``cli.main``."""
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(
                p for p in (str(REPO_ROOT), os.environ.get("PYTHONPATH"))
@@ -53,7 +56,8 @@ def spawn_rank(rank: int, world: int, obs_dir, argv, device: str,
            "MPIBT_MESH_WORLD": str(world),
            "MPIBT_MESH_OBS_INTERVAL": RANK_FLUSH_S,
            **(extra_env or {})}
-    cmd = [sys.executable, "-m", "mpi_blockchain_tpu_torch", "mine",
+    cmd = [sys.executable,
+           *(entry or ["-m", "mpi_blockchain_tpu_torch"]), "mine",
            *device_args(device), "--mesh-obs", str(obs_dir), *argv]
     return subprocess.Popen(cmd, env=env, cwd=str(REPO_ROOT),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,

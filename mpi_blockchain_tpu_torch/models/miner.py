@@ -35,11 +35,12 @@ the ``miner_heartbeat`` gauge stamped after every sweep and every append
 pipelined driver counts ``speculative_discards_total{reason}``. Both
 carry the reference's spans: ``miner.block`` around a block,
 ``miner.sweep`` around each search (in the pipelined driver, around the
-consume of a dispatch), ``miner.append`` around the C++ append. Two
-seams are the reference's: ``payload_for`` (the template feed) and
-``_block_mined`` (runs after every append; the serving front door marks
-transactions included there). The elastic ``_begin_block`` seam is not
-ported yet.
+consume of a dispatch), ``miner.append`` around the C++ append. Three
+seams are the reference's: ``payload_for`` (the template feed),
+``_begin_block`` (runs before a block's first sweep; the elastic world
+supervises and re-stripes there) and ``_block_mined`` (runs after every
+append; the serving front door marks transactions included there, the
+elastic world writes its causal record).
 
 Both drivers trace every block as the reference does: a
 ``blocktrace.trace_block`` frame around the block (and one per template),
@@ -236,6 +237,13 @@ class Miner:
         the stale speculation into a ``restripe`` discard."""
         return self.config.payload(height)
 
+    def _begin_block(self, height: int) -> None:
+        """Runs before a block's first sweep, in both drivers: the elastic
+        supervision seam (fault site, staleness oracle, re-stripe). The
+        pipelined driver re-validates any speculative dispatch against
+        the window set and candidate read after it, so a hook that
+        re-stripes turns the speculation into a ``restripe`` discard."""
+
     def _block_mined(self, rec: BlockRecord) -> None:
         """Runs right after a block's append, in both drivers."""
 
@@ -250,6 +258,7 @@ class Miner:
         (``config.extend_payload``).
         """
         height = self.node.height + 1
+        self._begin_block(height)
         if data is None:
             data = self.payload_for(height)
         backend = self.backend.name
@@ -567,6 +576,9 @@ class Miner:
         the next block, issued from this winner's digest before the
         append. ``wall_ms`` is a placeholder the chain driver replaces."""
         height = self.node.height + 1
+        # Before search_windows(): a re-stripe here fails the speculation
+        # check below, whose windows were the world's before the hook.
+        self._begin_block(height)
         data = self.payload_for(height)
         windows = _WindowSet(self.search_windows())
         if windows.get(0) is None:

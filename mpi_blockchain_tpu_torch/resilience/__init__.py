@@ -21,6 +21,11 @@ The port's copy of the reference's ``resilience`` package:
   ``"degraded": true`` in the summary, a warning on stderr), and
   ``search_async`` puts the sweep on the card at once and finishes it when
   its result is asked for.
+* **elastic** -- rank-death survival: ``guarded_collective`` (the
+  watchdogged rendezvous), ``ElasticWorld`` and ``ElasticMiner`` (the
+  process-per-rank world that evicts a dead peer and re-stripes the nonce
+  space over the survivors), and ``ElasticMeshBackend`` (the in-process
+  flavor, which shrinks its logical miners on suspicion).
 
 The one departure from the reference: a hand-written kernel that fails to
 build or launch, or whose read-back reports a CUDA error, raises
@@ -55,6 +60,22 @@ class FaultTimeout(FaultInjected):
 class FaultPlanError(ConfigError):
     """Invalid or unexhausted fault plan (CLI rc 3): unparseable spec,
     unknown site or kind, or, under ``strict``, faults that never fired."""
+
+
+class RankLossSuspected(RuntimeError):
+    """A guarded collective or rendezvous exceeded its watchdog budget (or
+    an injected ``parallel.collective`` fault fired): a peer rank is
+    suspected dead, and the survivor shrinks instead of hanging
+    (``resilience/elastic.py``)."""
+
+    def __init__(self, site: str, elapsed_s: float | None = None,
+                 message: str = ""):
+        self.site = site
+        self.elapsed_s = elapsed_s
+        super().__init__(
+            message or f"collective at {site} exceeded its watchdog"
+            + (f" after {elapsed_s:.3f}s" if elapsed_s is not None else "")
+            + " — peer rank loss suspected")
 
 
 class RetryExhausted(RuntimeError):

@@ -1,4 +1,5 @@
-"""CLI: ``python -m mpi_blockchain_tpu_torch.resilience {smoke,plan}``.
+"""CLI: ``python -m mpi_blockchain_tpu_torch.resilience
+{smoke,elastic-smoke,plan}``.
 
 ``smoke`` drives the port's resilience through its real CLI, in the
 reference's three phases:
@@ -23,6 +24,23 @@ the card, where the plan's search fault lands on ``backend.cuda.dispatch``,
 the rung that runs; ``--device cpu`` runs them on the CPU (the C++ sweep,
 whose fault site ``backend.cpu.search`` the reference's plan names).
 
+``elastic-smoke`` drives the elastic mesh through the CLI in the
+reference's two phases, each a world of four ``mine --elastic`` rank
+processes sharing a ``--mesh-obs`` directory:
+
+1. **SIGKILL.** Rank 2 is SIGKILLed once its shard proves a miner
+   heartbeat; the survivors must evict it through the shard oracle
+   (``dead-shard``), re-stripe over ``[0, 1, 3]``, exit 0 and mine chains
+   the C++ node accepts. Their chains are sized so that they still mine
+   when the eviction lands (``survivor_chain``).
+2. **Determinism.** A seeded ``mesh.rank_death`` plan hard-exits one
+   rank (rc 137, no final shard) at block 3 while every survivor evicts it
+   there; two same-seed worlds must write byte-identical causal dumps.
+
+Its ranks mine on the card unless ``--device cpu`` asks for the C++ sweep,
+and each is held to its device's rung with no retry or step-down
+(``meshwatch.world.rung_fault``).
+
 ``plan --seed N`` prints the plan ``--fault-plan seed:N`` would arm.
 """
 from __future__ import annotations
@@ -39,6 +57,8 @@ import subprocess
 import sys
 import tempfile
 import threading
+
+from ..config import ConfigError
 
 #: How long the killed miner's dispatch hangs, so the kill lands before it
 #: mines on (it is killed long before the sleep ends).
@@ -225,6 +245,282 @@ def cmd_smoke(args) -> int:
     return 0
 
 
+# ---- the elastic smoke ------------------------------------------------------
+
+#: The elastic smoke's world and the rank its SIGKILL phase kills.
+ELASTIC_WORLD, ELASTIC_VICTIM = 4, 2
+#: The determinism phase's plan (the reference's): the third
+#: ``mesh.rank_death`` step, at height 3, kills a seeded-chosen rank.
+RANK_DEATH_PLAN = {"version": 1, "seed": 9, "faults": [
+    {"site": "mesh.rank_death", "kind": "partial", "call": 2}]}
+RANK_DEATH_HEIGHT = 3
+#: The determinism phase's chain by device: the reference's on the C++
+#: sweep, a harder one on the card (a d12 block there takes microseconds).
+DEATH_CHAIN = {"cpu": ["--difficulty", "12", "--blocks", "8",
+                       "--batch-pow2", "12"],
+               "cuda": ["--difficulty", "20", "--blocks", "8"]}
+#: The SIGKILL phase's shard cadence and stall budget (the reference's): a
+#: live survivor's flusher starved by a busy host is never taken for the
+#: corpse; the missing-rank grace is parked beyond the run.
+SIGKILL_ENV = {"MPIBT_MESH_OBS_INTERVAL": "0.2", "MPIBT_MESH_STALL": "2.0",
+               "MPIBT_ELASTIC_GRACE": "600"}
+#: The SIGKILL phase's victim, by device: a chain it is still sweeping
+#: when the signal lands.
+SIGKILL_VICTIM_CHAIN = {"cpu": ["--difficulty", "24", "--blocks", "1000"],
+                        "cuda": ["--difficulty", "32", "--blocks", "1000",
+                                 "--batch-pow2", "22"]}
+#: Seconds of mining each SIGKILL survivor is sized to: the eviction lands
+#: a few seconds in (the kill, then the 2 s stall budget).
+SURVIVOR_SECONDS = {"cpu": 12.0, "cuda": 6.0}
+
+
+def survivor_chain(device: str) -> list[str]:
+    """The SIGKILL survivors' chain, sized to ``SURVIVOR_SECONDS`` of
+    mining at this host's (or card's) sweep rate, as the reference sizes
+    it: d18 on the C++ sweep, where each rank has a core of its own; d28
+    at 2^24 a window on the card (where a block's hashing, not its host
+    work, sets its length), which the four ranks share, each mining a
+    chain of its own on its stripes."""
+    import time
+
+    from .. import core
+
+    if device == "cpu":
+        t0 = time.perf_counter()
+        _, probed = core.cpu_search(bytes(range(80)), 0, 1 << 20, 40)
+        rate = probed / max(time.perf_counter() - t0, 1e-9)
+        blocks = max(12, min(600, int(SURVIVOR_SECONDS["cpu"] * rate
+                                      / (1 << 18))))
+        return ["--difficulty", "18", "--blocks", str(blocks)]
+    from ..backend.cuda import CudaBackend
+
+    backend = CudaBackend(batch_pow2=24, device=device)
+    probe = 1 << 28
+    backend.search(bytes(range(80)), 64, 0, probe)   # loads the library
+    t0 = time.perf_counter()
+    backend.search(bytes(range(80)), 64, 0, probe)
+    rate = probe / max(time.perf_counter() - t0, 1e-9)
+    blocks = max(12, min(1000, int(SURVIVOR_SECONDS["cuda"] * rate
+                                   / (ELASTIC_WORLD << 28))))
+    return ["--difficulty", "28", "--blocks", str(blocks),
+            "--batch-pow2", "24"]
+
+
+def _elastic_ranks(tmp: pathlib.Path, name: str, device: str, argv_of,
+                   extra_env: dict | None = None, entry=None) -> dict:
+    """Starts the four ranks of one ``mine --elastic`` world (rank r with
+    the flags ``argv_of(r)``), sharing ``tmp/name/mesh``."""
+    from ..meshwatch.world import spawn_rank
+
+    obs = tmp / name / "mesh"
+    obs.mkdir(parents=True, exist_ok=True)
+    return {r: spawn_rank(r, ELASTIC_WORLD, obs, ["--elastic", *argv_of(r)],
+                          device, extra_env, entry=entry)
+            for r in range(ELASTIC_WORLD)}
+
+
+def _last_json(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    return json.loads(lines[-1]) if lines else {}
+
+
+def _check_chain(path: pathlib.Path, difficulty: int, what: str) -> None:
+    """The rank's chain file passes the C++ node's full validation."""
+    from .. import core
+
+    assert core.Node(difficulty).load(path.read_bytes()), \
+        f"{what}: chain failed the C++ node's validation"
+
+
+def _check_rungs(obs: pathlib.Path, device: str, outs: dict,
+                 what: str) -> dict:
+    """Every shard's rank mined on ``device``'s rung with no retry and no
+    step-down (a killed rank's shard speaks for it); returns the shards
+    by rank."""
+    from ..meshwatch.aggregate import read_shards
+    from ..meshwatch.world import rung_fault
+
+    shards = {s["rank"]: s for s in read_shards(obs)}
+    for rank, shard in shards.items():
+        fault = rung_fault(rank, device, shard, outs.get(rank))
+        assert fault is None, f"{what}: {fault}"
+    return shards
+
+
+def elastic_rank_death_world(tmp: pathlib.Path, name: str,
+                             device: str = "cuda", chain=None,
+                             entry=None) -> dict:
+    """One four-rank world under ``RANK_DEATH_PLAN``, each rank writing
+    its chain and its causal dump: exactly one rank, never rank 0, exits
+    137 with no final shard and no dump; every survivor exits 0, evicts
+    it for ``rank_death`` at ``RANK_DEATH_HEIGHT``, mines a valid chain
+    and stays on its rung. Returns the victim, the survivors' dumps,
+    summaries and final shards, each rank's stderr and the world's
+    wall."""
+    import time
+
+    chain = DEATH_CHAIN[device] if chain is None else chain
+    difficulty = int(chain[chain.index("--difficulty") + 1])
+    plan = tmp / "rank_death.json"
+    plan.write_text(json.dumps(RANK_DEATH_PLAN))
+    base = tmp / name
+    t0 = time.perf_counter()
+    procs = _elastic_ranks(tmp, name, device, lambda r: [
+        *chain, "--fault-plan", str(plan),
+        "--events-dump", str(base / f"dump_{r}.json"),
+        "--out", str(base / f"chain_{r}.bin")], entry=entry)
+    from ..meshwatch.world import reap
+    try:
+        got = {r: p.communicate(timeout=600) for r, p in procs.items()}
+    finally:
+        reap(procs.values())
+    wall = time.perf_counter() - t0
+    rcs = {r: p.returncode for r, p in procs.items()}
+    victims = [r for r, rc in rcs.items() if rc == 137]
+    what = f"elastic {name}"
+    assert len(victims) == 1, f"{what}: exit codes {rcs}: " + \
+        "; ".join(err[-600:] for _, err in got.values())
+    victim = victims[0]
+    assert victim != 0, f"{what}: the anchor rank must never be the victim"
+    assert all(rc == 0 for r, rc in rcs.items() if r != victim), \
+        (what, rcs, {r: got[r][1][-600:] for r in rcs if rcs[r]})
+    outs = {r: (None if r == victim else got[r][0]) for r in rcs}
+    shards = _check_rungs(base / "mesh", device, outs, what)
+    assert not shards[victim]["final"], \
+        f"{what}: the hard-exited rank {victim} wrote a final shard"
+    assert not (base / f"dump_{victim}.json").exists(), \
+        f"{what}: the hard-exited rank {victim} wrote a dump"
+    summaries, dumps = {}, {}
+    for r in rcs:
+        if r == victim:
+            continue
+        summaries[r] = _last_json(got[r][0])
+        mesh = summaries[r].get("mesh") or {}
+        ev = [(e["rank"], e["reason"], e["height"])
+              for e in mesh.get("evicted", [])]
+        assert ev == [(victim, "rank_death", RANK_DEATH_HEIGHT)], \
+            (what, r, mesh)
+        assert victim not in mesh.get("live", []), (what, r, mesh)
+        assert shards[r]["final"] and shards[r]["exit_status"] == 0, \
+            (what, r)
+        _check_chain(base / f"chain_{r}.bin", difficulty, f"{what} rank {r}")
+        dumps[r] = (base / f"dump_{r}.json").read_bytes()
+    return {"victim": victim, "dumps": dumps, "summaries": summaries,
+            "shards": {r: shards[r] for r in summaries},
+            "stderr": {r: err for r, (_, err) in got.items()},
+            "wall_s": wall}
+
+
+def smoke_elastic_determinism(tmp: pathlib.Path,
+                              device: str = "cuda") -> dict:
+    """Two same-seed ``mesh.rank_death`` worlds: the same victim dies at
+    the same height, and every survivor's causal dump is byte-identical
+    across the two."""
+    runs = [elastic_rank_death_world(tmp, f"death{i}", device)
+            for i in range(2)]
+    assert runs[0]["victim"] == runs[1]["victim"], \
+        [r["victim"] for r in runs]
+    for r, dump in runs[0]["dumps"].items():
+        assert dump == runs[1]["dumps"][r], \
+            f"rank {r}: same-seed mesh.rank_death dumps diverge"
+    return {"victim": runs[0]["victim"], "height": RANK_DEATH_HEIGHT,
+            "dump_bytes": {r: len(d) for r, d in runs[0]["dumps"].items()},
+            "wall_s": [r["wall_s"] for r in runs]}
+
+
+def smoke_elastic_sigkill(tmp: pathlib.Path, device: str = "cuda",
+                          entry=None) -> dict:
+    """A four-rank world whose rank ``ELASTIC_VICTIM`` is SIGKILLed once
+    its shard proves a miner heartbeat: every survivor evicts it for
+    ``dead-shard`` (the shard oracle's ``evict``), re-stripes over the
+    other three, exits 0 with a valid chain and stays on its rung.
+    Returns the eviction heights, the survivors' summaries and final
+    shards, each survivor's stderr and the world's wall."""
+    import signal
+    import time
+
+    from ..meshwatch.aggregate import read_shards
+    from ..meshwatch.shard import shard_path
+    from ..meshwatch.world import reap
+
+    chain = survivor_chain(device)
+    difficulty = int(chain[chain.index("--difficulty") + 1])
+    victim, name = ELASTIC_VICTIM, "sigkill"
+    base = tmp / name
+    t0 = time.perf_counter()
+    procs = _elastic_ranks(
+        tmp, name, device,
+        lambda r: (SIGKILL_VICTIM_CHAIN[device] if r == victim else
+                   [*chain, "--out", str(base / f"chain_{r}.bin")]),
+        SIGKILL_ENV, entry=entry)
+    obs = base / "mesh"
+    try:
+        deadline = time.monotonic() + 120
+        vpath = shard_path(obs, victim)
+        while time.monotonic() < deadline:
+            beats = {s["rank"]: s for s in read_shards(obs)}.get(
+                victim, {}).get("heartbeats", {})
+            if vpath.exists() and any("miner_heartbeat" in k
+                                      for k in beats):
+                break
+            assert procs[victim].poll() is None, \
+                procs[victim].communicate()[1][-800:]
+            time.sleep(0.1)
+        else:
+            raise AssertionError("elastic sigkill: victim never heartbeat")
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(timeout=30)
+        got = {r: p.communicate(timeout=600) for r, p in procs.items()
+               if r != victim}
+    finally:
+        reap(procs.values())
+    wall = time.perf_counter() - t0
+    for r, p in procs.items():
+        if r != victim:
+            assert p.returncode == 0, \
+                f"survivor rank {r} rc={p.returncode}: {got[r][1][-800:]}"
+    outs = {r: out for r, (out, _) in got.items()}
+    outs[victim] = None
+    shards = _check_rungs(obs, device, outs, "elastic sigkill")
+    summaries, heights = {}, {}
+    for r in got:
+        summaries[r] = _last_json(outs[r])
+        mesh = summaries[r].get("mesh") or {}
+        assert mesh.get("live") == [0, 1, 3], (r, mesh)
+        ev = {e["rank"]: e for e in mesh.get("evicted", [])}
+        assert list(ev) == [victim] and \
+            ev[victim]["reason"] == "dead-shard", (r, mesh)
+        assert ev[victim]["height"] < summaries[r]["height"], \
+            f"rank {r} evicted at its last block: no re-striped mining"
+        heights[r] = ev[victim]["height"]
+        _check_chain(base / f"chain_{r}.bin", difficulty, f"rank {r}")
+    return {"victim": victim, "eviction_heights": heights,
+            "blocks": int(chain[chain.index("--blocks") + 1]),
+            "difficulty": difficulty, "summaries": summaries,
+            "shards": {r: shards[r] for r in got},
+            "stderr": {r: err for r, (_, err) in got.items()},
+            "wall_s": wall}
+
+
+def cmd_elastic_smoke(args) -> int:
+    from ..meshwatch.world import check_device
+
+    check_device(args.device)
+    with tempfile.TemporaryDirectory() as td:
+        tmp = pathlib.Path(td)
+        got = smoke_elastic_sigkill(tmp, device=args.device)
+        print(f"elastic-smoke: sigkill ok (victim {got['victim']} evicted "
+              f"for dead-shard by every survivor at heights "
+              f"{got['eviction_heights']} of {got['blocks']} d"
+              f"{got['difficulty']} blocks; chains valid)", flush=True)
+        got = smoke_elastic_determinism(tmp, device=args.device)
+        print(f"elastic-smoke: determinism ok (seeded victim "
+              f"{got['victim']} died at height {got['height']} in both "
+              f"runs; survivor causal dumps byte-identical, "
+              f"{got['dump_bytes']} bytes)", flush=True)
+    return 0
+
+
 def cmd_plan(args) -> int:
     from .faultplan import FaultPlan
     print(json.dumps(FaultPlan.from_seed(args.seed,
@@ -246,13 +542,29 @@ def main(argv: list[str] | None = None) -> int:
                          help="where the phases run (default cuda: the "
                               "card; cpu: the C++ sweep)")
     p_smoke.set_defaults(fn=cmd_smoke)
+    p_elastic = sub.add_parser(
+        "elastic-smoke",
+        help="run the elastic-mesh smoke: a 4-rank striped world, one rank "
+             "SIGKILLed -> staleness eviction, re-stripe and rc 0, plus "
+             "byte-identical same-seed mesh.rank_death worlds")
+    p_elastic.add_argument("--device", choices=("cuda", "cpu"),
+                           default="cuda",
+                           help="where the ranks mine (default cuda: the "
+                                "card; cpu: the C++ sweep)")
+    p_elastic.set_defaults(fn=cmd_elastic_smoke)
     p_plan = sub.add_parser("plan", help="print the plan --fault-plan "
                                          "seed:N would arm")
     p_plan.add_argument("--seed", type=int, default=0)
     p_plan.add_argument("--faults", type=int, default=3)
     p_plan.set_defaults(fn=cmd_plan)
     args = parser.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except ConfigError as e:
+        # No card for a smoke asked to run on it: a clean error, rc 2.
+        print(json.dumps({"event": "error", "error": str(e)},
+                         sort_keys=True))
+        return 2
 
 
 if __name__ == "__main__":

@@ -124,7 +124,9 @@ def ladder_from_config(config, group=None,
     (``SimNode`` runs each group as one rank). In a world of processes a
     retry or a step-down on one rank is not seen by the others, so the
     ranks' collectives can fall out of step; the reference has the same
-    exposure, and its elastic mesh is the answer (not ported yet)."""
+    exposure. The elastic mesh (``mine --elastic``) runs its ranks as
+    processes with no collective between them, and, like the
+    reference's, does not make a gloo world elastic."""
     from ..backend import get_backend
 
     n_ranks = config.n_miners if cpu_ranks is None else cpu_ranks

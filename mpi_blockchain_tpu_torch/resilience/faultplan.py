@@ -25,9 +25,9 @@ injection counters reset at arm time, so a faulted run replays exactly.
 the reference's plan up to that one name. The port hooks
 ``backend.cuda.dispatch``, ``backend.cpu.search``, ``sim.deliver``,
 ``native.load``, ``checkpoint.write``, ``checkpoint.read``,
-``distributed.init``, ``sim.churn``, ``service.submit`` and
-``service.rebuild``. The other two sites belong to the elastic mesh, which
-is not ported yet: a plan may name them, and they never fire.
+``distributed.init``, ``sim.churn``, ``parallel.collective``,
+``mesh.rank_death``, ``service.submit`` and ``service.rebuild``: every
+site of the list.
 """
 from __future__ import annotations
 
@@ -55,8 +55,18 @@ SITES = (
     #                           a fired corrupt/partial fault
     #                           crash-restarts a seeded-chosen live node;
     #                           raise/hang crash the step
-    "parallel.collective",    # not ported: the elastic mesh
-    "mesh.rank_death",        # not ported: the elastic mesh
+    "parallel.collective",    # resilience/elastic.guarded_collective,
+    #                           per guarded rendezvous: every kind
+    #                           surfaces as RankLossSuspected (a hung,
+    #                           raised or damaged collective is the same
+    #                           event to the survivor as a lost peer)
+    "mesh.rank_death",        # resilience/elastic.ElasticWorld.step,
+    #                           once per block: a fired corrupt/partial
+    #                           fault hard-exits the seeded-chosen victim
+    #                           rank (os._exit, no final shard, like
+    #                           SIGKILL) while every survivor evicts it
+    #                           at the same step; raise/hang crash the
+    #                           step
     "service.submit",         # service/frontdoor.ServiceState.submit,
     #                           per admission attempt: raise/hang retry
     #                           under the service budget and shed typed

@@ -4,15 +4,16 @@ deterministic jitter, per-layer budgets, one loud give-up signal.
 * **Deterministic.** Jitter derives from (site, attempt, seed) through
   crc32, so a replayed fault plan replays the recovery timeline too.
 * **Budgeted per layer.** ``policy_for(site)`` carries the per-layer
-  table; ``MPIBT_MAX_RETRIES`` caps the attempts of every site.
+  table; ``MPIBT_MESH_REBUILD_RETRIES`` sets the mesh rebuild's attempts,
+  and ``MPIBT_MAX_RETRIES`` caps the attempts of every site.
 * **Selective.** ``ConfigError``, ``KernelError`` (a hand-written kernel
   that failed to build or launch) and KeyboardInterrupt/SystemExit are
   never retried: none of them heals with backoff, and retrying would bury
   the CLI's clean error.
 
-The per-site table keeps the reference's entries, the mesh rebuild's
-too, which the port has not ported yet, so ``policy_for`` gives the
-reference's budget for every site name. ``call_with_retry`` is the one
+The per-site table keeps the reference's entries, so ``policy_for``
+gives the reference's budget for every site name (``mesh.rebuild`` is the
+elastic in-process backend's rebuild). ``call_with_retry`` is the one
 place dispatch, distributed-init and checkpoint I/O exceptions are caught
 and retried.
 """
@@ -67,6 +68,10 @@ _PER_SITE: dict[str, RetryPolicy] = {
 }
 _DEFAULT = RetryPolicy()
 
+#: Site-specific attempt knobs, the reference's: unlike the global
+#: MPIBT_MAX_RETRIES cap these can raise a site's budget too.
+_SITE_ENV_ATTEMPTS = {"mesh.rebuild": "MPIBT_MESH_REBUILD_RETRIES"}
+
 
 def policy_for(site: str, seed: int = 0) -> RetryPolicy:
     """The per-layer budget for a site; dotted sites fall back to their
@@ -75,9 +80,13 @@ def policy_for(site: str, seed: int = 0) -> RetryPolicy:
 
     base = _PER_SITE.get(site) or _PER_SITE.get(site.split(".", 1)[0],
                                                 _DEFAULT)
+    attempts = base.max_attempts
+    site_env = _SITE_ENV_ATTEMPTS.get(site) \
+        or _SITE_ENV_ATTEMPTS.get(site.split(".", 1)[0])
+    if site_env:
+        attempts = env_number(site_env, attempts, cast=int, minimum=1)
     cap = env_number(_ENV_MAX_ATTEMPTS, None, cast=int, minimum=1)
-    attempts = (base.max_attempts if cap is None
-                else min(base.max_attempts, cap))
+    attempts = attempts if cap is None else min(attempts, cap)
     if attempts == base.max_attempts and seed == base.seed:
         return base
     return dataclasses.replace(base, max_attempts=attempts, seed=seed)

@@ -23,8 +23,9 @@ There is no device state to save: the search is stateless per block.
   validates through the C++ loader.
 
 The ``checkpoint.write`` and ``checkpoint.read`` fault sites produce torn,
-bitrotted or unreadable checkpoints on demand. The reference's ``mesh``
-sidecar field (the elastic world's membership) waits for the elastic mesh.
+bitrotted or unreadable checkpoints on demand. The sidecar's ``mesh``
+field carries the elastic world's membership (``ElasticWorld.membership``),
+so ``mine --elastic --resume`` restores the shrunken world.
 """
 from __future__ import annotations
 

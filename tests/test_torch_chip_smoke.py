@@ -645,3 +645,80 @@ def test_phase_12_run_module_reads_the_smokes_refusal():
     assert [name for name, *_ in chip_smoke.SMOKES] == [
         "meshwatch", "chainwatch", "blocktrace"]
     assert chip_smoke.MESH_OBS_TURNS == ("off", "obs", "obs", "off")
+
+
+def test_phase_13_counting_entry_reports_a_ranks_launches(tmp_path):
+    """A rank started through ``COUNTING_ENTRY`` mines as ``-m
+    mpi_blockchain_tpu_torch`` would and reports the library's launch
+    counter (0 on the C++ sweep) as its last stderr line."""
+    from mpi_blockchain_tpu_torch.meshwatch.world import spawn_rank
+
+    proc = spawn_rank(0, 1, tmp_path / "mesh",
+                      ["--elastic", "--difficulty", "8", "--blocks", "2"],
+                      "cpu", entry=chip_smoke.COUNTING_ENTRY)
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0, err[-600:]
+    assert json.loads(out.strip().splitlines()[-1])["mesh"]["live"] == [0]
+    assert chip_smoke.rank_launches(err) == 0
+    with pytest.raises(chip_smoke.SmokeFailure, match="no launch count"):
+        chip_smoke.rank_launches("a rank that died\n")
+
+
+def test_phase_13_registry_total_sums_labeled_samples():
+    shard = {"registry": {"speculative_discards_total": [
+        {"kind": "counter", "labels": {"reason": "restripe"}, "value": 2},
+        {"kind": "counter", "labels": {"reason": "winner"}, "value": 5},
+        {"kind": "counter", "labels": {"reason": "restripe"}, "value": 1}]}}
+    assert chip_smoke.registry_total(shard, "speculative_discards_total",
+                                     reason="restripe") == 3
+    assert chip_smoke.registry_total(shard,
+                                     "speculative_discards_total") == 8
+    assert chip_smoke.registry_total(shard, "incidents_total") == 0
+
+
+def test_phase_13_forensics_run_checks_sections_and_rows(tmp_path):
+    from mpi_blockchain_tpu_torch import telemetry
+
+    telemetry.reset()
+    dump = str(tmp_path / "attack.json")
+    rc, _ = chip_smoke.run_cli([*chip_smoke.FORENSICS_ATTACK_ARGS,
+                                "--events-dump", dump])
+    assert rc == 0
+    got = chip_smoke.forensics_run(dump, str(tmp_path / "trace.json"))
+    assert got["attacks"] and got["converged"] and got["blocks"] > 0
+    # A dump the reader cannot read fails the phase.
+    bad = tmp_path / "bad.json"
+    bad.write_text("{not json")
+    with pytest.raises(chip_smoke.SmokeFailure, match="rc 2"):
+        chip_smoke.forensics_run(str(bad), str(tmp_path / "t2.json"))
+
+
+def test_phase_13_mesh_fault_shrinks_the_logical_miners(tmp_path):
+    """13 c's plan and flags through the CLI on the CPU (the plain sweep,
+    an easier chain): the fault lands mid-run, the miners shrink 4 -> 3,
+    and the tip is the C++ oracle's."""
+    from mpi_blockchain_tpu_torch import telemetry
+
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps({"version": 1, "faults": [
+        chip_smoke.ELASTIC_COLLECTIVE_FAULT]}))
+    argv = list(chip_smoke.ELASTIC_MESH_ARGS)
+    argv[argv.index("--difficulty") + 1] = "10"
+    argv[argv.index("--batch-pow2") + 1] = "10"
+    telemetry.reset()
+    rc, got = chip_smoke.run_cli([*argv, "--device", "cpu",
+                                  "--fault-plan", str(plan)])
+    assert rc == 0
+    mesh = got["mesh"]["device_mesh"]
+    assert (mesh["n_miners"], mesh["n_live"], mesh["shrunk"]) == (4, 3, True)
+    rc, oracle = chip_smoke.run_cli(["mine", "--backend", "cpu",
+                                     "--difficulty", "10", "--blocks",
+                                     "10"])
+    assert rc == 0 and got["tip_hash"] == oracle["tip_hash"]
+    assert chip_smoke.ELASTIC_CHAIN[:2] == ("--difficulty", "20")
+
+
+def test_phase_13_run_module_reads_the_skew_smokes_refusal():
+    got = chip_smoke.run_module("mpi_blockchain_tpu_torch.meshwatch",
+                                ["skew-smoke"], 120)
+    assert got["rc"] == 2 and got["out"]["event"] == "error"

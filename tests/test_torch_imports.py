@@ -37,12 +37,16 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
                if PORT in f.parents}
     assert {"service", "perfwatch", "chainwatch", "telemetry", "models",
             "sim", "resilience", "ops", "backend", "blocktrace",
-            "meshwatch", "meshprof", "dispatchwatch"} <= scanned
+            "meshwatch", "meshprof", "dispatchwatch", "forensics"} <= scanned
     assert {"meshwatch/shard.py", "meshwatch/aggregate.py",
             "meshwatch/server.py", "meshwatch/bubble.py",
             "meshwatch/world.py", "meshwatch/__main__.py",
             "meshprof/analyzer.py", "blocktrace/export.py",
-            "blocktrace/__main__.py", "chainwatch/__main__.py"} <= {
+            "blocktrace/__main__.py", "chainwatch/__main__.py",
+            "resilience/elastic.py", "forensics/__init__.py",
+            "forensics/__main__.py", "forensics/merge.py",
+            "forensics/fork_tree.py", "forensics/attack_audit.py",
+            "forensics/trace_export.py"} <= {
         str(f.relative_to(PORT)) for f in _port_files() if PORT in f.parents}
     assert found == []
 

@@ -102,7 +102,15 @@ def _findings(pkg, path, entries):
     [("serve", "p99_latency_ms", v, 0.0, None) for v in (9.0, 2500.0)],
 ], ids=["drop", "noise", "spread", "tight", "lower", "improved",
         "by_recorded_at", "single", "section_floor", "serve_bound"])
-def test_detector_findings_equal_the_references(tmp_path, series):
+def test_detector_findings_equal_the_references(tmp_path, monkeypatch,
+                                               series):
+    # One clock for both packages: an entry recorded without its own
+    # recorded_at is stamped with the wall clock, and a findings'
+    # baseline_at carries it, so a second boundary between the two runs
+    # would make them differ.
+    for pkg_history in (history, ref_history):
+        monkeypatch.setattr(pkg_history, "_utc_now",
+                            lambda: "2026-09-01T00:00:00Z")
     got = _findings(PORT, tmp_path / "p.jsonl", series)
     assert got == _findings(REF, tmp_path / "r.jsonl", series)
     assert got[0]

@@ -209,6 +209,28 @@ then:
    the dump holds attacks, a trace row for every node; (e) ``python -m
    mpi_blockchain_tpu_torch.meshwatch skew-smoke`` with its ranks on the
    card, in a session of its own.
+14. the perf sentinel's CLIs (``python -m mpi_blockchain_tpu_torch.perfwatch``,
+   ``...dispatchwatch``, ``...telemetry``): (a) ``record
+   --seed-bench-rounds`` into a temporary history (the reference's TPU
+   records), then phase 7's card payloads (``sweep`` m8 and m1, ``chain``,
+   ``sharded_pallas``, ``tpu_single``): no history key holds both a
+   seeded entry and a card entry; ``check --json`` exits 0; the m1 sweep
+   payload at 0.8 of its rate, judged with ``check --candidate``, exits 1
+   and is not recorded, and once recorded ``check`` flags exactly one
+   regression, on the card's key; (b) ``report``'s ``roofline`` (the
+   newest card sweep against its bound) has ``bound_utilization_pct`` in
+   (0, 100]; (c) ``perfwatch smoke`` on the card: rc 0, ``/healthz``
+   healthy, the ``/metrics`` needles, sweep launches and every backend on
+   ``cuda:cuda``, its span buckets logged; (d) the mesh views over 12 e's
+   shards (two gloo ranks at the d20/n10 pin): ``critical-path --json``
+   with every height complete and ``--trace``, ``mesh-skew --json`` under
+   ``SECTION_BOUNDS["collective_skew"]``, ``incidents --json`` with none
+   open, ``compiles --mesh-dir`` with per-rank totals, not divergent, and
+   the card's cost probe, each CLI's JSON equal to the port's in-process
+   function on the same shards; (e) ``dispatchwatch smoke`` (rc 0, the
+   probe complete) and ``python -m mpi_blockchain_tpu_torch.telemetry
+   --steps 3`` (rc 0, the ``metrics-smoke`` needles), each in a process of
+   its own with its sweep launches counted.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -227,6 +249,7 @@ import io
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -430,6 +453,27 @@ COUNTING_ENTRY = ["-c", "import json, sys\n"
                   "print(json.dumps({'sweep_launches': sha256_cuda.launches"
                   "}), file=sys.stderr)\n"
                   "sys.exit(rc)\n"]
+
+
+# A module's CLI in a process of its own whose sweep launches can be read
+# back, as COUNTING_ENTRY does for the port's CLI.
+MODULE_COUNTING_ENTRY = ("import importlib, json, sys\n"
+                         "from mpi_blockchain_tpu_torch.ops import "
+                         "sha256_cuda\n"
+                         "rc = importlib.import_module({module!r}).main("
+                         "sys.argv[1:])\n"
+                         "print(json.dumps({{'sweep_launches': "
+                         "sha256_cuda.launches}}), file=sys.stderr)\n"
+                         "sys.exit(rc)\n")
+# Phase 14 (a): phase 7's card payloads as they are recorded, in order (the
+# m1 sweep last, so the report's roofline is its).
+PERFWATCH_RECORDS = (("sweep", ("sweep", 8)), ("chain", ("chain",)),
+                     ("sharded_pallas", ("sharded",)),
+                     ("tpu_single", ("single",)), ("sweep", ("sweep", 1)))
+PERFWATCH_DROP = 0.8
+PERFWATCH_TIMEOUT_S = 240
+# What ``make metrics-smoke`` greps the telemetry CLI's snapshot for.
+METRICS_NEEDLES = (r"^mining_rounds_total", r"^hashes_tried_total", r"_count")
 
 
 class SmokeFailure(Exception):
@@ -3077,16 +3121,22 @@ def flush_cost_ms(td: str, n: int = MESH_OBS_FLUSHES) -> dict:
             "bytes": len(data), "pipeline_records": len(payload["pipeline"])}
 
 
-def run_module(module: str, args: list[str], timeout: float) -> dict:
+def run_module(module: str, args: list[str], timeout: float,
+               counted: bool = False) -> dict:
     """``python -m module args`` from the checkout's root in a session of
     its own (the smokes start rank processes; a timeout kills them all):
-    rc, the last JSON line of its stdout, the tail of its stderr, wall."""
+    rc, the last JSON line of its stdout, its stdout, the tail of its
+    stderr, wall. ``counted`` runs the module's ``main`` through
+    ``MODULE_COUNTING_ENTRY``, which prints the process's sweep launches
+    last on stderr (``rank_launches`` reads them)."""
     import signal
 
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    entry = (["-c", MODULE_COUNTING_ENTRY.format(module=module + ".__main__")]
+             if counted else ["-m", module])
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", module, *args],
+    proc = subprocess.Popen([sys.executable, *entry, *args],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, cwd=REPO_ROOT,
                             start_new_session=True)
@@ -3098,7 +3148,7 @@ def run_module(module: str, args: list[str], timeout: float) -> dict:
             proc.communicate()
     lines = [ln for ln in out.splitlines() if ln.strip().startswith("{")]
     return {"rc": proc.returncode,
-            "out": json.loads(lines[-1]) if lines else {},
+            "out": json.loads(lines[-1]) if lines else {}, "stdout": out,
             "err": err[-2000:], "wall_s": time.perf_counter() - t0}
 
 
@@ -3169,14 +3219,15 @@ def mesh_world(td: str) -> dict:
                                          for s in shards]}
 
 
-def phase_mesh_obs(device) -> dict:
+def phase_mesh_obs(device, keep_world: str | None = None) -> dict:
     """Phase 12: mesh observability on the card. (a) ``mine --mesh-obs``
     at d24/n1000/2^24 through the pipelined ``Miner``, with and without
     the shard in turns (MESH_OBS_TURNS), and ``mine --fused --mesh-obs``:
     the pins, the final shards, wall and host ms a block; (b) to (d) the
     meshwatch, chainwatch and blocktrace smokes with their ranks on the
     card; (e) two gloo processes at the d20/n10 pin with ``--mesh-obs``,
-    the skew analyzer and a ``MeshServer`` on their shards."""
+    the skew analyzer and a ``MeshServer`` on their shards, which are
+    copied to ``keep_world`` when it is given (phase 14 reads them)."""
     import statistics
 
     out: dict = {"miner": {"obs": [], "off": []}}
@@ -3243,6 +3294,8 @@ def phase_mesh_obs(device) -> dict:
 
         # (e) first: it shares phase 8's world shape.
         out["world"] = mesh_world(td)
+        if keep_world is not None:
+            shutil.copytree(os.path.join(td, "mesh"), keep_world)
         log(f"phase 12e two processes over gloo with --mesh-obs "
             f"(d20/n10/b20): both ranks at the pin, shards rank_0000 and "
             f"rank_0001 final; {out['world']['rounds']} mesh.sweep rounds "
@@ -3527,6 +3580,245 @@ def phase_elastic(device) -> dict:
     return out
 
 
+def perfwatch_cli(argv: list[str]) -> tuple[int, str, str]:
+    """``python -m mpi_blockchain_tpu_torch.perfwatch argv`` in this
+    process: rc, stdout, stderr."""
+    from mpi_blockchain_tpu_torch.perfwatch.__main__ import main as pw_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = pw_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def perfwatch_json(argv: list[str], what: str, want_rc: int = 0) -> dict:
+    """The perfwatch CLI's JSON (its last stdout line), held to ``want_rc``."""
+    rc, out, err = perfwatch_cli(argv)
+    lines = out.strip().splitlines()
+    check(rc == want_rc and bool(lines),
+          f"{what}: rc {rc} (want {want_rc}), {out[-600:]!r} {err[-600:]!r}")
+    return json.loads(lines[-1])
+
+
+def _without(doc: dict, *keys: str) -> dict:
+    return {k: v for k, v in doc.items() if k not in keys}
+
+
+def perfwatch_history(td: str, bench: dict, card: str) -> dict:
+    """Phase 14 (a) and (b): the seeded history, the card's payloads
+    recorded beside it, the injected drop and the roofline."""
+    from mpi_blockchain_tpu_torch.perfwatch.attribution import \
+        payload_utilization
+    from mpi_blockchain_tpu_torch.perfwatch.history import HistoryStore
+
+    hist = os.path.join(td, "history.jsonl")
+    seeded = perfwatch_json(["record", "--history", hist,
+                             "--seed-bench-rounds"], "phase 14a seed")
+    check(seeded["recorded"] > 0, f"phase 14a seed: {seeded}")
+    keys = {}
+    for i, (section, path) in enumerate(PERFWATCH_RECORDS):
+        payload = bench
+        for step in path:
+            payload = payload[step]
+        fname = os.path.join(td, f"payload_{i}.json")
+        with open(fname, "w") as f:
+            json.dump(payload, f)
+        rec = perfwatch_json(["record", "--history", hist, "--section",
+                              section, "--payload", fname, "--source",
+                              "chip_smoke"], f"phase 14a record {section}")
+        keys[".".join(map(str, path))] = rec["key"]
+    sources = {key: {e.source for e in entries} for key, entries in
+               HistoryStore(hist).by_key().items()}
+    mixed = {k: v for k, v in sources.items()
+             if "chip_smoke" in v and len(v) > 1}
+    check(not mixed, f"phase 14a: keys holding a seeded and a card entry: "
+          f"{mixed}")
+    clean = perfwatch_json(["check", "--json", "--history", hist],
+                           "phase 14a check")
+    check(clean["regressions"] == 0, f"phase 14a check: {clean}")
+    report = perfwatch_json(["report", "--history", hist], "phase 14b report")
+    roofline = report.get("roofline") or {}
+    pct = roofline.get("bound_utilization_pct", 0.0)
+    check(roofline == payload_utilization(bench["sweep"][1]),
+          f"phase 14b: roofline {roofline} is not the m1 sweep's")
+    check(0.0 < pct <= 100.0,
+          f"phase 14b: bound_utilization_pct {pct} outside (0, 100]")
+    log(f"phase 14a perfwatch record --seed-bench-rounds: {seeded['recorded']}"
+        f" seeded entries; the card's keys {keys}, none holding a seeded "
+        f"entry; check --json rc 0, 0 regressions across "
+        f"{len(clean['findings'])} series; {card}")
+    log(f"phase 14b report roofline (newest card sweep, m1): "
+        f"{json.dumps(roofline, sort_keys=True)}; m8: "
+        f"{json.dumps(payload_utilization(bench['sweep'][8]), sort_keys=True)}"
+        f"; {card}")
+
+    drop = {**bench["sweep"][1], "hashes_per_sec_per_chip":
+            PERFWATCH_DROP * bench["sweep"][1]["hashes_per_sec_per_chip"]}
+    cand = os.path.join(td, "drop.json")
+    with open(cand, "w") as f:
+        json.dump(drop, f)
+    before = pathlib.Path(hist).read_bytes()
+    judged = perfwatch_json(["check", "--json", "--history", hist,
+                             "--section", "sweep", "--candidate", cand],
+                            "phase 14a candidate", want_rc=1)
+    check(pathlib.Path(hist).read_bytes() == before,
+          "phase 14a: check --candidate wrote the history")
+    perfwatch_json(["record", "--history", hist, "--section", "sweep",
+                    "--payload", cand, "--source", "chip_smoke"],
+                   "phase 14a record the drop")
+    flagged = perfwatch_json(["check", "--json", "--history", hist],
+                             "phase 14a check after the drop", want_rc=1)
+    bad = [f for f in flagged["findings"] if f["verdict"] == "regression"]
+    check(flagged["regressions"] == 1 and len(bad) == 1
+          and bad[0]["key"] == keys["sweep.1"],
+          f"phase 14a: after the drop {bad}")
+    log(f"phase 14a the m1 sweep at {PERFWATCH_DROP} of its rate: check "
+        f"--candidate rc 1 ({judged['findings'][0]['delta_pct']}% worse, "
+        f"allowed {judged['findings'][0]['allowed_pct']}%), history "
+        f"unchanged; recorded, check rc 1 with exactly one regression, on "
+        f"{bad[0]['key']}")
+    return {"seeded": seeded["recorded"], "keys": keys,
+            "roofline": roofline,
+            "roofline_m8": payload_utilization(bench["sweep"][8]),
+            "drop": bad[0]}
+
+
+def perfwatch_mesh_views(td: str, world: str | None, card: str) -> dict:
+    """Phase 14 (d): the mesh views over a two-rank card world's shards,
+    each CLI's JSON against the port's in-process function."""
+    from mpi_blockchain_tpu_torch.blocktrace.critical_path import \
+        critical_path_report
+    from mpi_blockchain_tpu_torch.meshprof.analyzer import analyze_skew
+    from mpi_blockchain_tpu_torch.meshwatch.aggregate import (
+        mesh_compiles, mesh_incidents, read_shards)
+    from mpi_blockchain_tpu_torch.perfwatch.detector import SECTION_BOUNDS
+
+    if world is None:
+        world = os.path.join(td, "mesh")
+        gloo_world(td, ["--mesh-obs", world], "phase 14d gloo world")
+    shards = read_shards(world)
+    check([s["rank"] for s in shards] == [0, 1],
+          f"phase 14d: shards of ranks {[s['rank'] for s in shards]}")
+    records = [r for s in shards for r in s.get("pipeline") or []]
+    d = ["--mesh-dir", world]
+    cp = perfwatch_json(["critical-path", "--json", *d],
+                        "phase 14d critical-path")
+    blocks = cp.get("blocks", {})
+    check(cp.get("heights") == list(range(1, 11)) and all(
+        blocks[str(h)]["complete"] for h in range(1, 11)),
+        f"phase 14d critical-path: heights {cp.get('heights')}, "
+        f"{ {h: b.get('complete') for h, b in blocks.items()} }")
+    check(_without(cp, "event", "source") == critical_path_report(records),
+          "phase 14d critical-path: the CLI differs from the function")
+    trace = os.path.join(td, "critical_path.json")
+    traced = perfwatch_json(["critical-path", "--json", "--trace", trace, *d],
+                            "phase 14d critical-path --trace")
+    with open(trace) as f:
+        events = len(json.load(f)["traceEvents"])
+    check(traced["trace"]["events"] == events > 0,
+          f"phase 14d --trace: {traced.get('trace')}, {events} events")
+    skew = perfwatch_json(["mesh-skew", "--json", *d], "phase 14d mesh-skew")
+    bound = SECTION_BOUNDS["collective_skew"]
+    check(_without(skew, "event", "source") == analyze_skew(shards),
+          "phase 14d mesh-skew: the CLI differs from the function")
+    check(skew["site_count"] > 0 and skew["max_skew_ms"] < bound,
+          f"phase 14d mesh-skew: {skew['site_count']} sites, max skew "
+          f"{skew['max_skew_ms']} ms, bound {bound}")
+    inc = perfwatch_json(["incidents", "--json", *d], "phase 14d incidents")
+    check(inc["count"] == 0 and inc["incidents"] == mesh_incidents(shards),
+          f"phase 14d incidents: {inc}")
+    comp = perfwatch_json(["compiles", "--json", *d], "phase 14d compiles")
+    mesh = comp.get("mesh", {})
+    check(mesh == mesh_compiles(shards)
+          and sorted(mesh.get("by_rank", {})) == ["0", "1"]
+          and mesh.get("divergent") is False,
+          f"phase 14d compiles: {mesh}")
+    cost = comp.get("cost", {})
+    check(cost.get("loop_instructions_per_nonce", 0) > 0,
+          f"phase 14d compiles: cost probe {cost}")
+    log(f"phase 14d mesh views over two gloo ranks' shards (d20/n10/b20): "
+        f"critical-path heights 1..10 complete, {events} trace events; "
+        f"mesh-skew {skew['site_count']} site(s), max skew "
+        f"{skew['max_skew_ms']} ms (bound {bound}); {inc['count']} open "
+        f"incidents; compiles by rank {mesh['by_rank']}, not divergent; "
+        f"cost probe {json.dumps(cost, sort_keys=True)}; each CLI equal to "
+        f"the in-process function; {card}")
+    return {"events": events, "max_skew_ms": skew["max_skew_ms"],
+            "sites": skew["site_count"], "compiles": mesh, "cost": cost}
+
+
+def phase_perfwatch(device, bench: dict | None = None,
+                    world: str | None = None) -> dict:
+    """Phase 14: the perf sentinel's CLIs on the card (module docstring).
+    ``bench`` is phase 7's payloads (measured here when None); ``world``
+    is a directory of 12 e's shards (a two-rank world is run here when
+    None)."""
+    import re
+
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+    card = nvidia_smi("name,power.limit")
+    t0 = time.perf_counter()
+    if bench is None:
+        bench = phase_bench(device, {"wall_s": float("nan")})
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as td:
+        out["history"] = perfwatch_history(td, bench, card)
+
+        before = sha256_cuda.launches
+        smoke = perfwatch_json(["smoke"], "phase 14c perfwatch smoke")
+        launches = sha256_cuda.launches - before
+        check(smoke.get("ok") is True and smoke["healthz"] == "ok"
+              and smoke["sweep_launches"] == launches > 0
+              and set(smoke["rungs"]) == {"cuda:cuda"},
+              f"phase 14c perfwatch smoke: {smoke}, {launches} launches")
+        out["smoke"] = smoke
+        log(f"phase 14c perfwatch smoke on the card: rc 0, /healthz "
+            f"{smoke['healthz']}, /metrics {smoke['metrics_lines']} lines "
+            f"with the needles; {launches} sweep launches, rungs "
+            f"{smoke['rungs']}; span_attribution_dominant "
+            f"{smoke['span_attribution_dominant']}, buckets (s) "
+            f"{smoke['span_buckets']}; {card}")
+
+        out["mesh"] = perfwatch_mesh_views(td, world, card)
+
+    res = run_module("mpi_blockchain_tpu_torch.dispatchwatch", ["smoke"],
+                     PERFWATCH_TIMEOUT_S, counted=True)
+    dw = res["out"]
+    check(res["rc"] == 0 and dw.get("ok") is True
+          and dw.get("cost", {}).get("loop_instructions_per_nonce", 0) > 0,
+          f"phase 14e dispatchwatch smoke: rc {res['rc']}, {dw}, "
+          f"{res['err']}")
+    out["dispatchwatch"] = {**dw, "launches": rank_launches(res["err"]),
+                            "wall_s": res["wall_s"]}
+    log(f"phase 14e python -m mpi_blockchain_tpu_torch.dispatchwatch smoke: "
+        f"rc 0, {json.dumps(dw, sort_keys=True)}, "
+        f"{out['dispatchwatch']['launches']} sweep launches, "
+        f"{res['wall_s']:.1f} s; {card}")
+    res = run_module("mpi_blockchain_tpu_torch.telemetry", ["--steps", "3"],
+                     PERFWATCH_TIMEOUT_S, counted=True)
+    missing = [n for n in METRICS_NEEDLES
+               if not re.search(n, res["stdout"], re.M)]
+    tel_launches = rank_launches(res["err"]) if res["rc"] == 0 else 0
+    check(res["rc"] == 0 and not missing and tel_launches > 0
+          and 'backend="cuda"' in res["stdout"],
+          f"phase 14e telemetry CLI: rc {res['rc']}, missing {missing}, "
+          f"{tel_launches} launches, {res['err']}")
+    out["telemetry"] = {"launches": tel_launches, "wall_s": res["wall_s"],
+                        "snapshot_lines": len(res["stdout"].splitlines())}
+    out["launches"] = {"perfwatch_smoke": launches,
+                       "dispatchwatch_smoke":
+                           out["dispatchwatch"]["launches"],
+                       "telemetry_cli": tel_launches}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 14e python -m mpi_blockchain_tpu_torch.telemetry --steps 3: "
+        f"rc 0, the metrics-smoke needles, "
+        f"{out['telemetry']['snapshot_lines']} snapshot lines, "
+        f"{tel_launches} sweep launches, {res['wall_s']:.1f} s; phase 14 "
+        f"took {out['wall_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3544,6 +3836,7 @@ def main() -> int:
         print(f"chip_smoke: FAIL: the port is not here ({e})",
               file=sys.stderr)
         return 1
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         device = torch.device("cuda", 0)
         card = nvidia_smi("name,power.limit")
@@ -3575,12 +3868,16 @@ def main() -> int:
         sim = phase_sim(device)
         serve = phase_serve(device)
         trace = phase_trace(device, startup_nvcc)
-        mesh_obs = phase_mesh_obs(device)
+        world = os.path.join(keep, "mesh")
+        mesh_obs = phase_mesh_obs(device, keep_world=world)
         elastic = phase_elastic(device)
+        perfwatch = phase_perfwatch(device, bench, world)
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     f24, f16 = fused[(24, 1000)], fused[(16, 30)]
     log(f"card: {card}")
     log(json.dumps({"kernels": [{
@@ -3625,9 +3922,11 @@ def main() -> int:
             "b_sigkill": elastic["sigkill"]["launches"],
             "c_mesh": {form: elastic["mesh"][form]["launches"]
                        for form in ("fault", "clean")}},
+        "launches_perfwatch": perfwatch["launches"],
         "bench": bench, "mesh8": mesh, "resilience": resilience,
         "sim": sim, "serve": serve, "trace": trace,
-        "mesh_obs": mesh_obs, "elastic": elastic}, {
+        "mesh_obs": mesh_obs, "elastic": elastic,
+        "perfwatch": perfwatch}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",

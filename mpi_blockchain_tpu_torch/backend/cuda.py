@@ -55,6 +55,7 @@ resilience ladder builds its top rung.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
@@ -230,6 +231,8 @@ class CudaBackend(MinerBackend):
             finish.ready = read.ready
         if hasattr(read, "sweep"):
             finish.sweep = read.sweep
+        if hasattr(read, "opened"):
+            finish.opened = read.opened
         return finish
 
     def _start_world(self, ext, start: int, end: int, difficulty_bits: int):
@@ -238,7 +241,10 @@ class CudaBackend(MinerBackend):
         until a round's summed count is above 0; then the tail past the
         last whole round, swept whole by every rank. Starts the first
         round's slice; returns the function that runs the rest and gives
-        the (count, min_nonce) of the whole search."""
+        the (count, min_nonce) of the whole search. On the card it carries
+        ``ready`` and ``opened``, the ``time.perf_counter()`` at which the
+        first slice was launched (the search's device window opens
+        there)."""
         size, b = self.round_size, self.batch_size
         n_rounds = device_rounds(start, end, size)
         device_end = start + n_rounds * size
@@ -248,6 +254,7 @@ class CudaBackend(MinerBackend):
             return self._start(ext, lo, min(lo + b, end) - lo,
                                difficulty_bits)
 
+        opened = time.perf_counter()
         first = rank_slice(0) if n_rounds else None
 
         def run() -> tuple[int, int]:
@@ -265,7 +272,7 @@ class CudaBackend(MinerBackend):
             return self._start(ext, device_end, end - device_end,
                                difficulty_bits)()
         if first is not None and hasattr(first, "ready"):
-            run.ready = first.ready
+            run.ready, run.opened = first.ready, opened
         return run
 
     def search(self, header80: bytes, difficulty_bits: int,

@@ -21,6 +21,12 @@ so a later benchmark can read both packages' records:
   as its correctness canary;
 * ``repeat_best``: best of N with the spread on the record.
 
+The chain, sharded and single-preset payloads carry ``backend``, which
+the reference's do not: the kernel that swept (``"cuda"`` on the card,
+``"torch"`` for the plain version on the CPU), so that the history key of
+a card measurement never equals the key of the reference's TPU record of
+the same cell (``perfwatch.history.entry_key``).
+
 Everything runs on the card unless the caller asks for the CPU
 (``device="cpu"``: the plain PyTorch versions), and a number taken on the
 CPU is never given a device metric's name (``kernel_ms`` and ``bound_ms``
@@ -338,7 +344,8 @@ def bench_chain(n_blocks: int = 1000, difficulty_bits: int = 24,
     gauge("bench_blocks_per_sec", help="last measured full-chain mining "
           "rate", backend="cuda-fused").set(n_blocks / wall)
     return {"n_blocks": n_blocks, "difficulty_bits": difficulty_bits,
-            "n_miners": n_miners, "wall_s": round(wall, 3),
+            "n_miners": n_miners, "backend": miner.effective_kernel,
+            "wall_s": round(wall, 3),
             "blocks_per_sec": n_blocks / wall,
             "tip_hash": node.tip_hash.hex()}
 
@@ -365,7 +372,8 @@ def bench_sharded(n_blocks: int = 30, difficulty_bits: int = 16,
                          blocks_per_call=blocks_per_call, n_miners=1,
                          kernel=kernel, device=device)
     oracle = _oracle_tip(difficulty_bits, n_blocks)
-    return {**result, "mesh": "1-device ('miners',)", "kernel": kernel,
+    return {**result, "mesh": "1-device ('miners',)",
+            "kernel": result["backend"],
             "cpu_oracle_tip": oracle,
             "tip_matches_cpu_oracle": result["tip_hash"] == oracle}
 
@@ -394,7 +402,10 @@ def bench_cuda_single(device="cuda", kernel: str | None = None) -> dict:
     miner.mine_chain()
     wall = time.perf_counter() - t0
     oracle = _oracle_tip(cfg.difficulty_bits, cfg.n_blocks)
-    return {"preset": "tpu-single", "n_blocks": cfg.n_blocks,
+    active = getattr(miner.backend, "active_backend", miner.backend)
+    swept = getattr(active, "effective_kernel", None) or active.name
+    return {"preset": "tpu-single", "backend": swept,
+            "n_blocks": cfg.n_blocks,
             "difficulty_bits": cfg.difficulty_bits,
             "batch_pow2": cfg.batch_pow2, "wall_s": round(wall, 3),
             "hashes_per_sec": round(miner.hashes_per_sec()),

@@ -76,9 +76,13 @@ the card: it opens at the hand-off to the thread (or the previous
 window's end) and lasts the time the thread spent in the search; the
 thread's own start, which waits for the interpreter lock, falls to the
 chained ``validate`` as the card's launch latency does. A discarded one
-is drained as on the card. Where the search has neither (the plain sweep, a
-world of processes, a retried search) the window is the call that did
-the work: the issue call of a synchronous ``search_async``, else the
+is drained as on the card. A search in a world of processes on the card
+puts its first slice on the card at the issue and runs its
+winner-selects in the consume, so its window opens when that slice went
+on the card (or at the previous window's end) and closes with the
+consume (``_world_window``). Where the search has none of these (the
+plain sweep, a retried search) the window is the call that did the
+work: the issue call of a synchronous ``search_async``, else the
 consume. The ``enqueue`` segment covers the
 candidate build and the issue call (on the card, the host's midstate
 precompute and the launch).
@@ -438,14 +442,31 @@ class Miner:
         """A consumed dispatch's device window on the profiler's clock:
         from its started sweep's launch and time (on the card, its
         events; on a search thread, its stamps) when its result is that
-        sweep's, else the call that did the work (the issue call of a
-        synchronous ``search_async``, else the consume)."""
+        sweep's, from its first slice on the card to the consume for a
+        search in a world of processes, else the call that did the work
+        (the issue call of a synchronous ``search_async``, else the
+        consume)."""
         if d.sync:
             return d.t_issue, d.t_issued
         sweep = getattr(d.future, "sweep", None)
         if sweep is not None and sweep.timed and d.future.from_launch:
             return self._card_window(d.prec, *sweep.timing())
+        opened = getattr(d.future, "opened", None)
+        if opened is not None and d.future.from_launch:
+            return self._world_window(d.prec, opened, t_done)
         return t_wait, t_done
+
+    def _world_window(self, prec, opened: float,
+                      t_done: float) -> tuple[float, float]:
+        """The window of a search in a world of processes: its first
+        slice went on the card at ``opened`` (perf_counter), after the
+        card's earlier work, and its winner-selects ran in the consume,
+        which ended at ``t_done`` (the profiler's clock). The consume
+        alone would leave the slice's time on the card, while the host
+        finished the block before, out of every segment of its block."""
+        start = max(opened, self._card_end)
+        self._card_end = max(self._card_end, t_done - prec.at(0.0))
+        return prec.at(start), t_done
 
     def _card_window(self, prec, launched: float,
                      device_s: float) -> tuple[float, float]:

@@ -150,6 +150,12 @@ def library() -> ctypes.CDLL:
     return _lib()
 
 
+def library_loaded() -> bool:
+    """Whether this process has bound the kernel library (it is bound
+    once a process, at the first ``library()``)."""
+    return _lib.cache_info().currsize > 0
+
+
 def cuda_error(what: str, err: int) -> KernelError:
     return KernelError(f"{what} failed: CUDA error {err} "
                         f"({_lib().sha256d_sweep_error_string(err).decode()})")

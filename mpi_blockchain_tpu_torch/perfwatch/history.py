@@ -16,9 +16,15 @@ baseline; ``detector.SECTION_BOUNDS`` may bound it absolutely).
 
 The repo's ``PERF_HISTORY.jsonl`` was written by the reference package;
 the port reads it (the serve smoke judges its payload through the
-detector) and records only into a file its caller names. The seeding from
-the reference's bench round records belongs to the perfwatch CLI, which
-is not ported yet.
+detector) and records only into a file its caller names.
+
+Seeding: ``seed_from_bench_rounds`` imports the repo's ``BENCH_r0*.json``
+round records (fresh measurements only: a ``cached`` payload re-reports
+an earlier fresh run) and ``BENCH_CACHE.json`` (which carries
+``measured_at``), de-duplicating on equal metric values, as the
+reference does. Those records are the reference's, taken on a TPU; the
+port's own bench payloads carry ``backend`` (``"cuda"`` on the card), so
+their keys never meet a seeded one.
 """
 from __future__ import annotations
 
@@ -98,10 +104,13 @@ class HistoryStore:
         self.path = pathlib.Path(path)
 
     def record(self, section: str, payload: dict, source: str = "cli",
-               recorded_at: str | None = None) -> Entry | None:
+               recorded_at: str | None = None,
+               dedupe: bool = False) -> Entry | None:
         """Appends one measurement. Returns None (and writes nothing)
-        when the section is unknown or the payload lacks the section's
-        headline metric."""
+        when the section is unknown, the payload lacks the section's
+        headline metric, or ``dedupe`` finds the same value already
+        recorded for this key (the seeding path: a ``cached`` payload
+        re-reports an earlier fresh run)."""
         spec = SECTION_METRICS.get(section)
         if spec is None or spec[0] not in payload:
             return None
@@ -109,6 +118,10 @@ class HistoryStore:
                       key=entry_key(section, payload),
                       recorded_at=recorded_at or _utc_now(),
                       source=source, payload=dict(payload))
+        if dedupe:
+            prior = [e for e in self.entries() if e.key == entry.key]
+            if any(e.value == entry.value for e in prior):
+                return None
         with self.path.open("a") as f:
             f.write(json.dumps(entry.to_dict(), sort_keys=True) + "\n")
         return entry
@@ -143,3 +156,124 @@ class HistoryStore:
         for e in self.entries(section):
             grouped.setdefault(e.key, []).append(e)
         return grouped
+
+
+# ---- seeding from the repo's bench records --------------------------------
+
+# The reference's bench.py report nests section payloads under these
+# detail keys.
+_DETAIL_SECTIONS = {
+    "tpu": "sweep",
+    "chain_1000_diff24": "chain",
+    "tpu_single": "tpu_single",
+    "sharded_pallas": "sharded_pallas",
+    "cpu_np8": "cpu_np8",
+    "sim_adversarial": "sim_adversarial",
+    "utilization": "utilization",
+}
+
+
+def _parse_round_report(path: pathlib.Path) -> dict | None:
+    """A BENCH_r0N.json file: {"parsed": {...}} when the run's output was
+    parsed, else the raw "tail" whose LAST parseable JSON line is the
+    report (the tail may be cut at the front)."""
+    try:
+        doc = json.loads(path.read_text())
+    except (OSError, json.JSONDecodeError):
+        return None
+    if isinstance(doc.get("parsed"), dict):
+        return doc["parsed"]
+    report = None
+    for line in str(doc.get("tail", "")).splitlines():
+        line = line.strip()
+        if not (line.startswith("{") and line.endswith("}")):
+            continue
+        try:
+            d = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(d, dict) and "metric" in d:
+            report = d
+    return report
+
+
+def import_bench_report(store: HistoryStore, report: dict, source: str,
+                        dedupe: bool = True,
+                        default_recorded_at: str | None = None) -> int:
+    """Records every fresh section payload of one bench report dict and
+    returns how many. ``cached`` payloads are skipped: they re-report an
+    earlier fresh measurement and would flatten the trajectory.
+    ``default_recorded_at`` stamps payloads that carry no
+    ``measured_at`` of their own, so a backfill lands in the past (the
+    detector picks its candidate by ``recorded_at``, not file position)."""
+    detail = report.get("detail", report)
+    if not isinstance(detail, dict):
+        return 0
+    n = 0
+    for key, section in _DETAIL_SECTIONS.items():
+        payload = detail.get(key)
+        if not isinstance(payload, dict) or payload.get("cached"):
+            continue
+        if store.record(section, payload, source=source,
+                        recorded_at=(payload.get("measured_at")
+                                     or default_recorded_at),
+                        dedupe=dedupe):
+            n += 1
+    return n
+
+
+def _parse_iso_z(s) -> datetime.datetime | None:
+    try:
+        return datetime.datetime.strptime(
+            str(s), "%Y-%m-%dT%H:%M:%SZ").replace(
+            tzinfo=datetime.timezone.utc)
+    except (TypeError, ValueError):
+        return None
+
+
+def seed_from_bench_rounds(store: HistoryStore,
+                           root: str | pathlib.Path) -> dict:
+    """Imports BENCH_r0*.json (round order) and BENCH_CACHE.json into the
+    store. Returns {"rounds": n_files, "recorded": n_entries, "skipped":
+    unparseable_files}.
+
+    The round records carry no timestamps of their own, and the cache
+    holds the newest numbers. So round i of N is stamped ``anchor - (N -
+    i) minutes``, where ``anchor`` is the oldest ``measured_at`` in the
+    cache (now, without one): the rounds keep their order, and every
+    seeded round sits before the cache and before any later append."""
+    root = pathlib.Path(root)
+    cache_path = root / "BENCH_CACHE.json"
+    cache: dict = {}
+    if cache_path.exists():
+        try:
+            cache = json.loads(cache_path.read_text())
+        except (OSError, json.JSONDecodeError):
+            cache = {}
+    stamps = [t for ent in cache.values() if isinstance(ent, dict)
+              for t in [_parse_iso_z(ent.get("measured_at"))] if t]
+    anchor = min(stamps, default=datetime.datetime.now(
+        datetime.timezone.utc))
+    round_paths = sorted(root.glob("BENCH_r[0-9]*.json"))
+    recorded, skipped = 0, []
+    for i, path in enumerate(round_paths):
+        report = _parse_round_report(path)
+        if report is None:
+            skipped.append(path.name)
+            continue
+        stamp = (anchor - datetime.timedelta(
+            minutes=len(round_paths) - i)).strftime("%Y-%m-%dT%H:%M:%SZ")
+        recorded += import_bench_report(store, report, source=path.name,
+                                        default_recorded_at=stamp)
+    for section, ent in sorted(cache.items()):
+        if not (isinstance(ent, dict) and isinstance(
+                ent.get("payload"), dict)):
+            continue
+        # Cache keys are history section names; unknown ones (a
+        # determinism record such as "sharded_chain") fall out of
+        # record() as a no-op.
+        if store.record(section, ent["payload"], source="BENCH_CACHE.json",
+                        recorded_at=ent.get("measured_at"), dedupe=True):
+            recorded += 1
+    return {"rounds": len(round_paths), "recorded": recorded,
+            "skipped": skipped}

@@ -366,14 +366,17 @@ class _Dispatch(concurrent.futures.Future):
     ``TimeoutError`` instead of hanging the read-back. Cancelling it
     before then drops it (the started sweep runs out on the device
     unread). ``sweep`` is the started sweep on the card (the
-    ``LaunchedSweep``, with its time there), or None; ``from_launch`` says
-    the result is that sweep's, not a retry's."""
+    ``LaunchedSweep``, with its time there), or None; ``opened``, for a
+    search in a world of processes on the card, when its first slice was
+    launched, or None; ``from_launch`` says the result is the started
+    search's, not a retry's."""
 
     def __init__(self, backend: ResilientBackend, launched: tuple,
                  args: tuple):
         super().__init__()
         self.backend, self.launched, self.args = backend, launched, args
         self.sweep = getattr(launched[1], "sweep", None)
+        self.opened = getattr(launched[1], "opened", None)
         self.from_launch = False
 
     def result(self, timeout=None):

@@ -11,8 +11,10 @@ progress heartbeat gauge (``heartbeat_snapshot`` is what ``/healthz`` and
 the front door's accept gate read), this process's mesh rank
 (``set_mesh_rank``; ``blocktrace`` frames and ``meshwatch.pipeline``
 records carry it, ``rank_counter`` labels with it) and a Prometheus dump.
-The profiler capture waits for a later slice of the port. All of it is
-host-side and standard library only.
+``python -m mpi_blockchain_tpu_torch.telemetry`` (``__main__``) runs the
+instrumented mine and faulted simulation on the card (``--device cpu``:
+the C++ sweep) and prints the snapshot. The profiler capture waits for a
+later slice of the port. All of it is host-side and standard library only.
 """
 from __future__ import annotations
 

@@ -1,1 +1,2 @@
-"""Utilities of the port: crash-safe chain checkpoints (``checkpoint``)."""
+"""Utilities of the port: crash-safe chain checkpoints (``checkpoint``)
+and the JSON-lines logging helpers (``logging``)."""

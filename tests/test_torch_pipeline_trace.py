@@ -327,8 +327,10 @@ def test_the_resilient_c_sweep_leaves_every_block_complete():
 
 #: Host work after each append, longer than any d12 search here.
 HOST_WORK_S = 0.03
-#: What a window may add to its C++ sweep: the span and the fault check
-#: around it on the search thread.
+#: What a window may add to its search: the call into the search and the
+#: return from it on the search thread, where ``HostSweep`` stamps its
+#: time. Well under HOST_WORK_S, so that a window stretched over the
+#: dispatch's time in flight (which holds the host's work) still fails.
 WINDOW_SLACK_S = 0.005
 
 
@@ -336,20 +338,23 @@ def test_the_c_sweeps_device_window_is_its_search(monkeypatch):
     """The C++ sweep's device window counts the search and nothing the
     host does meanwhile: with 30 ms of host work after each append, each
     consumed dispatch's window lies between its issue and the end of its
-    sweep on the search thread, and lasts that sweep's time (within the
-    span and fault check around it)."""
-    from mpi_blockchain_tpu_torch import core
+    search on the search thread, and lasts that search's time (within the
+    call and return around it).
 
+    The search is the backend's whole ``search`` (fault check, span, C++
+    sweep, winner digest), timed where it runs: the thread may lose the
+    core or the interpreter lock inside it, after the C++ sweep returns,
+    and that time is the search's too."""
     runs = []
-    real = core.cpu_search
+    real = CpuBackend.search
 
-    def timed_search(*args):
+    def timed_search(self, *args, **kwargs):
         t0 = time.perf_counter()
-        res = real(*args)
+        res = real(self, *args, **kwargs)
         runs.append((t0, time.perf_counter(),
                      threading.current_thread() is threading.main_thread()))
         return res
-    monkeypatch.setattr(core, "cpu_search", timed_search)
+    monkeypatch.setattr(CpuBackend, "search", timed_search)
     pipeline.reset_profiler()
     miner = Miner(MinerConfig(difficulty_bits=DIFFICULTY, n_blocks=BLOCKS,
                               backend="cpu"), pipeline=True)
@@ -554,6 +559,66 @@ def test_pipelined_miner_takes_device_windows_from_the_card(stale):
     assert report["heights"] == list(range(1, BLOCKS + 1))
     assert report["unattributed_segments"] == (
         2 * (BLOCKS - 1) if stale else 0)
+
+
+class _FakeWorldDispatch(concurrent.futures.Future):
+    """The resilient backend's future of a search in a world of processes
+    on the card: its first slice launched at the issue (``opened``), the
+    rest of the search (the winner-selects) run when it is consumed."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn, self.sweep, self.from_launch = fn, None, False
+        self.opened = time.perf_counter()
+        self.consumed: tuple[float, float] | None = None
+
+    def result(self, timeout=None):
+        if not self.done():
+            t0 = time.perf_counter()
+            self.set_result(self.fn())
+            self.from_launch = True
+            self.consumed = (t0, time.perf_counter())
+        return super().result(timeout)
+
+
+class _FakeWorld(CpuBackend):
+    def __init__(self):
+        super().__init__()
+        self.dispatches: list[_FakeWorldDispatch] = []
+
+    def search_async(self, header80, difficulty_bits, start_nonce=0,
+                     max_count=1 << 32):
+        d = _FakeWorldDispatch(lambda: self.search(
+            header80, difficulty_bits, start_nonce=start_nonce,
+            max_count=max_count))
+        self.dispatches.append(d)
+        return d
+
+
+def test_a_world_search_window_opens_at_its_first_slice():
+    """A search in a world of processes on the card: its window opens when
+    its first slice went on the card (or at the previous window's end)
+    and closes with the consume, so the host work of the block before,
+    30 ms after each append, leaves no block incomplete. With the consume
+    alone as the window, every block after the first is 30 ms short."""
+    world = _FakeWorld()
+    miner = Miner(MinerConfig(difficulty_bits=DIFFICULTY, n_blocks=BLOCKS,
+                              backend="cpu"), backend=world, pipeline=True)
+    miner.mine_chain(on_block=lambda rec: time.sleep(HOST_WORK_S))
+    anchor = pipeline.profiler().at(0.0)
+    records = pipeline.profiler().records()
+    assert len(records) == len(world.dispatches) == BLOCKS
+    prev_end = 0.0
+    for rec, d in zip(records, world.dispatches):
+        seg = {x["stage"]: x for x in rec["segments"]}
+        t0, t1 = seg["device"]["t0"] - anchor, seg["device"]["t1"] - anchor
+        assert t0 == pytest.approx(max(d.opened, prev_end), abs=1e-5)
+        assert d.consumed[1] <= t1 <= d.consumed[1] + WINDOW_SLACK_S
+        prev_end = t1
+    report = critical_path.critical_path_report(records)
+    assert report["heights"] == list(range(1, BLOCKS + 1))
+    assert all(report["blocks"][str(h)]["complete"]
+               for h in report["heights"]), report["blocks"]
 
 
 def test_telemetry_off_reads_no_card_timing():

@@ -231,6 +231,24 @@ then:
    probe complete) and ``python -m mpi_blockchain_tpu_torch.telemetry
    --steps 3`` (rc 0, the ``metrics-smoke`` needles), each in a process of
    its own with its sweep launches counted.
+15. the last of the reference's paths: (a) ``mine --fused
+   --blocks-per-call 100`` as two gloo processes sharing the card at the
+   d24/n1000/b24 pin (``gloo_world`` at ``FUSED_WORLD_CHAIN``): both ranks
+   reach the pin, rank 0 alone writes the chain and the summary, each rank
+   launches one sweep a round (the rounds the chain's winners need,
+   ``world_rounds``) and a step a block and a call, and prints one
+   ``block_mined`` a block; the wall beside phase 8's per-block world and
+   phase 5's single-process fused run; (b) ``mine --profile DIR`` and
+   ``mine --fused --profile DIR`` at the d20/n10 pin, each without and
+   with the capture: the pin every time, the trace holds one
+   ``sha256d_sweep_kernel`` event a sweep launch and one
+   ``block_step_kernel`` event a step launch, each launched inside its
+   form's host span (``trace_kernels``), and the ring one ``block_mined``
+   a block; the walls with and without the capture; (c)
+   ``graft_entry.dryrun_multichip(8)`` and ``entry()`` on the card print
+   and give what they do on the CPU. (d) The ``block_mined`` records of
+   (a) and (b) are the repair of the event stream; phases 6 a and 11 read
+   its price.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -250,6 +268,7 @@ import json
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -455,6 +474,19 @@ COUNTING_ENTRY = ["-c", "import json, sys\n"
                   "sys.exit(rc)\n"]
 
 
+# A rank of a gloo world whose sweep and step launches can be read back:
+# the port's CLI, then both counters as the last line of stderr, then the
+# CLI's own exit for a process that joined a world.
+WORLD_COUNTING_ENTRY = [
+    "-c", "import json, sys\n"
+    "from mpi_blockchain_tpu_torch.cli import main\n"
+    "from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda\n"
+    "from mpi_blockchain_tpu_torch.parallel.distributed import "
+    "exit_process\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(json.dumps({'sweep_launches': sha256_cuda.launches, "
+    "'step_launches': sha256_block.step_launches}), file=sys.stderr)\n"
+    "exit_process(rc)\n"]
 # A module's CLI in a process of its own whose sweep launches can be read
 # back, as COUNTING_ENTRY does for the port's CLI.
 MODULE_COUNTING_ENTRY = ("import importlib, json, sys\n"
@@ -474,6 +506,20 @@ PERFWATCH_DROP = 0.8
 PERFWATCH_TIMEOUT_S = 240
 # What ``make metrics-smoke`` greps the telemetry CLI's snapshot for.
 METRICS_NEEDLES = (r"^mining_rounds_total", r"^hashes_tried_total", r"_count")
+# Phase 15: the last of the reference's paths. (a) ``mine --fused`` as a
+# two-rank gloo world at the full-size pin, FUSED_WORLD_K blocks a call; (b)
+# ``mine --profile`` at the d20/n10 pin (WORLD_ARGS), per block and fused,
+# each without and with the capture; (c) the graft twin's dry run with
+# GRAFT_MINERS miners.
+FUSED_WORLD_CHAIN = ("--difficulty", "24", "--blocks", "1000", "--batch-pow2",
+                     "24")
+FUSED_WORLD_K = 100
+PROFILE_FORMS = {"miner": [], "fused": ["--fused"]}
+GRAFT_MINERS = 8
+# What the capture calls the library's kernels (a part of each name), and
+# the host span inside which each form launches them.
+TRACE_KERNELS = {"sweep": "sha256d_sweep_kernel", "step": "block_step_kernel"}
+LAUNCH_SPANS = {"miner": "backend.cuda.dispatch", "fused": "fused.dispatch"}
 
 
 class SmokeFailure(Exception):
@@ -1869,12 +1915,29 @@ def phase_mesh(device, miner_chain: dict, fused: dict,
     return out
 
 
-def gloo_world(td: str, extra: list[str], what: str
+def world_argv(chain: tuple, extra: list[str], port: int,
+               rank: int) -> list[str]:
+    """The command line of rank ``rank`` of a two-rank ``mine`` world at
+    ``chain`` (``WORLD_ARGS``' flags) with ``extra`` flags: the CLI through
+    ``WORLD_COUNTING_ENTRY``, with ``--verbose``, and Python's fault
+    handler, so that a rank that hangs dumps its threads' stacks on
+    SIGABRT."""
+    return [sys.executable, "-X", "faulthandler", *WORLD_COUNTING_ENTRY,
+            "mine", *chain, *extra,
+            "--verbose", "--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", "2", "--process-id", str(rank)]
+
+
+def gloo_world(td: str, extra: list[str], what: str,
+               chain: tuple = WORLD_ARGS, pin: tuple = (20, 10, 20)
                ) -> tuple[dict, list[tuple[str, str]], float]:
-    """Two ``mine`` processes sharing the card over gloo at the
-    d20/n10/b20 pin, with ``extra`` flags: both exit 0 at the pinned tip,
-    rank 0 alone prints the summary. Returns rank 0's summary, each
-    rank's (stdout, stderr) and the wall of the whole launch."""
+    """Two ``mine`` processes sharing the card over gloo at the chain
+    ``chain`` (``--difficulty``, ``--blocks`` and ``--batch-pow2``) whose
+    tip is ``PINNED_TIPS[pin]``, with ``extra`` flags: both exit 0 at the
+    pinned tip, rank 0 alone prints the summary, on the card's kernel (the
+    plain version where ``extra`` asks for ``--device cpu``). Returns rank
+    0's summary, each rank's (stdout, stderr) (its launches:
+    ``rank_counts``) and the wall of the whole launch."""
     import socket
 
     with socket.socket() as sock:
@@ -1882,24 +1945,40 @@ def gloo_world(td: str, extra: list[str], what: str
         port = sock.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    # Each rank's output goes to files: pipes read one rank after the
+    # other fill on the rank read last, which then blocks mid-run (a
+    # block_mined line a block) and the world's collectives with it; and
+    # a rank that hangs still shows what it printed.
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in range(2)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "mpi_blockchain_tpu_torch", "mine",
-         *WORLD_ARGS, *extra, "--verbose", "--coordinator",
-         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
-         str(rank)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env=env, cwd=td) for rank in range(2)]
+        world_argv(chain, extra, port, rank), stdout=out, stderr=err,
+        text=True, env=env, cwd=td) for rank, (out, err) in enumerate(logs)]
     try:
-        got = [p.communicate(timeout=300) for p in procs]
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + 300 - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGABRT)     # the stacks, then death
+        time.sleep(2.0)
     finally:
         for p in procs:
             p.kill()
             p.wait()
     spawn_wall = time.perf_counter() - t0
+    got = []
+    for out, err in logs:
+        out.seek(0)
+        err.seek(0)
+        got.append((out.read(), err.read()))
+        out.close()
+        err.close()
     rcs = [p.returncode for p in procs]
     check(rcs == [0, 0], f"{what}: rcs {rcs}; "
           f"{[e[-1500:] for _, e in got]}")
-    pinned = PINNED_TIPS[(20, 10, 20)]
+    pinned = PINNED_TIPS[pin]
     summary = json.loads(got[0][0].strip().splitlines()[-1])
     tips = [last_block(err).get("hash") for _, err in got]
     check(summary["tip_hash"] == pinned and tips == [pinned, pinned],
@@ -1907,7 +1986,11 @@ def gloo_world(td: str, extra: list[str], what: str
     check(got[1][0].strip() == "", f"{what}: rank 1 printed "
           f"{got[1][0][-300:]!r}")
     check(summary["config"]["n_miners"] == 2, f"{what}: {summary}")
-    check_no_step_down(summary, "cuda:cuda", what)
+    kernel = "torch" if "cpu" in extra else "cuda"
+    if summary["fused"]:
+        check(summary["kernel"] == kernel, f"{what}: {summary}")
+    else:
+        check_no_step_down(summary, f"cuda:{kernel}", what)
     return summary, got, spawn_wall
 
 
@@ -3324,13 +3407,19 @@ def phase_mesh_obs(device, keep_world: str | None = None) -> dict:
     return out
 
 
-def rank_launches(stderr: str) -> int:
-    """The sweep launches a ``COUNTING_ENTRY`` rank reported."""
+def rank_counts(stderr: str) -> dict:
+    """The launch counts a ``COUNTING_ENTRY`` or ``WORLD_COUNTING_ENTRY``
+    rank reported."""
     lines = [ln for ln in stderr.splitlines()
              if ln.startswith('{"sweep_launches"')]
     check(bool(lines), f"no launch count on the rank's stderr: "
           f"{stderr[-400:]}")
-    return json.loads(lines[-1])["sweep_launches"]
+    return json.loads(lines[-1])
+
+
+def rank_launches(stderr: str) -> int:
+    """The sweep launches a ``COUNTING_ENTRY`` rank reported."""
+    return rank_counts(stderr)["sweep_launches"]
 
 
 def registry_total(shard: dict, name: str, **labels) -> float:
@@ -3747,6 +3836,211 @@ def perfwatch_mesh_views(td: str, world: str | None, card: str) -> dict:
             "sites": skew["site_count"], "compiles": mesh, "cost": cost}
 
 
+def world_rounds(nonces: list[int], round_size: int) -> int:
+    """Rounds a world sweeps for a chain whose blocks were each searched
+    from nonce 0 (one slice a rank a round): the round of each winner."""
+    return sum(n // round_size + 1 for n in nonces)
+
+
+def block_heights(stderr: str) -> list[int]:
+    """The heights of the ``block_mined`` lines a ``mine`` printed."""
+    return [json.loads(ln)["height"] for ln in stderr.splitlines()
+            if '"block_mined"' in ln]
+
+
+def fused_world(td: str, world_wall: float | None,
+                fused_wall: float | None) -> dict:
+    """Phase 15 (a): ``mine --fused`` as two gloo processes sharing the
+    card at the d24/n1000/b24 pin. Both ranks reach the pin, rank 0 alone
+    writes the chain and the summary; each rank sweeps one slice a round
+    (the rounds the chain's winners need) and steps once a block and once
+    a call, and prints one ``block_mined`` a block."""
+    from mpi_blockchain_tpu_torch import core
+
+    what = "15a fused world"
+    chain_file = os.path.join(td, "fused_world.bin")
+    summary, got, launch_wall = gloo_world(
+        td, ["--fused", "--blocks-per-call", str(FUSED_WORLD_K), "--out",
+             chain_file], what, chain=FUSED_WORLD_CHAIN, pin=(24, 1000, 24))
+    with open(chain_file, "rb") as f:
+        blob = f.read()
+    check(core.Node(24).load(blob), f"{what}: chain invalid")
+    blocks = int(FUSED_WORLD_CHAIN[3])
+    rounds = world_rounds(chain_nonces(blob), 2 << int(FUSED_WORLD_CHAIN[5]))
+    steps = blocks + -(-blocks // FUSED_WORLD_K)
+    counts = [rank_counts(err) for _, err in got]
+    for rank, c in enumerate(counts):
+        check(c == {"sweep_launches": rounds, "step_launches": steps},
+              f"{what}: rank {rank} launched {c}, not {rounds} sweeps and "
+              f"{steps} steps")
+        check(block_heights(got[rank][1]) == list(range(1, blocks + 1)),
+              f"{what}: rank {rank}'s block_mined lines are not one a "
+              f"block")
+    check(summary["host_waits"] == rounds,
+          f"{what}: {summary['host_waits']} host waits for {rounds} rounds")
+    log(f"phase 15a mine --fused --blocks-per-call {FUSED_WORLD_K} as two "
+        f"gloo processes on one card (d24/n1000/b24): both ranks reach the "
+        f"pin, rank 0 alone wrote the chain and the summary; wall "
+        f"{summary['wall_s']} s (rank 0's mine_chain; the whole launch "
+        f"{launch_wall:.3f} s) beside the per-block world's "
+        f"{world_wall} s at d20/n10 (phase 8) and one process's fused "
+        f"{fused_wall} s at d24/n1000 (phase 5); launches a rank "
+        f"{[(c['sweep_launches'], c['step_launches']) for c in counts]} "
+        f"(sweeps, steps) for {rounds} rounds; {summary['host_waits']} host "
+        f"waits; bubble_fraction "
+        f"{summary.get('pipeline', {}).get('bubble_fraction')}; one "
+        f"block_mined a block on each rank's stderr; "
+        f"{nvidia_smi('name,power.limit')}")
+    return {"wall_s": summary["wall_s"], "launch_wall_s": launch_wall,
+            "rounds": rounds, "launches": counts,
+            "host_waits": summary["host_waits"],
+            "pipeline": summary.get("pipeline"),
+            "per_block_world_wall_s": world_wall,
+            "single_process_fused_wall_s": fused_wall}
+
+
+def trace_kernels(path: str, launch_span: str) -> dict:
+    """A ``trace_mining`` trace's kernels of ``TRACE_KERNELS`` by kind,
+    the host spans (user annotations) by name, and how many of those
+    kernels were launched inside a ``launch_span`` span: their launch's
+    runtime event (the kernel's correlation id) lies inside one on the
+    same thread."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans: dict[str, list] = {}
+    launches = {}
+    kernels = {kind: [] for kind in TRACE_KERNELS}
+    for ev in events:
+        cat, args = ev.get("cat"), ev.get("args", {})
+        if cat == "user_annotation":
+            spans.setdefault(ev["name"], []).append(ev)
+        elif cat in ("cuda_runtime", "cuda_driver") \
+                and "correlation" in args:
+            launches[args["correlation"]] = ev
+        elif cat == "kernel":
+            for kind, name in TRACE_KERNELS.items():
+                if name in ev["name"]:
+                    kernels[kind].append(ev)
+
+    def inside(ev, span) -> bool:
+        return span["tid"] == ev["tid"] and span["ts"] <= ev["ts"] \
+            and ev["ts"] + ev.get("dur", 0) <= span["ts"] + span["dur"]
+
+    enclosed = 0
+    for ev in (ev for evs in kernels.values() for ev in evs):
+        launch = launches.get(ev.get("args", {}).get("correlation"))
+        if launch is not None and any(inside(launch, sp)
+                                      for sp in spans.get(launch_span, [])):
+            enclosed += 1
+    return {"kernels": {kind: len(evs) for kind, evs in kernels.items()},
+            "spans": {name: len(evs) for name, evs in sorted(spans.items())},
+            "enclosed": enclosed}
+
+
+def profiled_mines(td: str) -> dict:
+    """Phase 15 (b): ``mine --profile DIR`` at the d20/n10/b20 pin, per
+    block and fused, each without and with the capture: the pin every
+    time; the trace holds one ``sha256d_sweep_kernel`` event a sweep
+    launch (and, fused, one ``block_step_kernel`` a step), each launched
+    inside its form's host span; the ring one ``block_mined`` a block
+    (the repair, 15 d)."""
+    from mpi_blockchain_tpu_torch import telemetry
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    out: dict = {}
+    for form, extra in PROFILE_FORMS.items():
+        row: dict = {}
+        for profiled in (False, True):
+            what = f"15b mine {form}{' --profile' if profiled else ''}"
+            logdir = os.path.join(td, f"trace_{form}")
+            flags = ["--profile", logdir] if profiled else []
+            telemetry.reset()
+            telemetry.clear_events()
+            sha256_cuda.launches = sha256_block.step_launches = 0
+            t0 = time.perf_counter()
+            rc, summary = run_cli(["mine", *WORLD_ARGS, *extra, *flags])
+            wall = time.perf_counter() - t0
+            sweeps, steps = sha256_cuda.launches, sha256_block.step_launches
+            check(rc == 0 and summary.get("tip_hash")
+                  == PINNED_TIPS[(20, 10, 20)], f"{what}: rc {rc}, {summary}")
+            ringed = telemetry.recent_events(event="block_mined")
+            check([r["height"] for r in ringed] == list(range(1, 11)),
+                  f"{what}: the ring's block_mined heights "
+                  f"{[r['height'] for r in ringed]}")
+            key = "profiled" if profiled else "plain"
+            row[key] = {"wall_s": summary["wall_s"], "cli_wall_s": wall,
+                        "sweeps": sweeps, "steps": steps}
+            if not profiled:
+                continue
+            traces = sorted(pathlib.Path(logdir).glob("*.pt.trace.json"))
+            check(len(traces) == 1, f"{what}: traces {traces}")
+            got = trace_kernels(str(traces[0]), LAUNCH_SPANS[form])
+            row["trace"] = got
+            log(f"phase {what}: {got}")
+            want = {"sweep": sweeps, "step": steps}
+            check(got["kernels"] == want,
+                  f"{what}: the trace holds kernels {got['kernels']}, the "
+                  f"run launched {want}")
+            check(got["enclosed"] == sweeps + steps,
+                  f"{what}: {got['enclosed']} of {sweeps + steps} kernels "
+                  f"launched inside a {LAUNCH_SPANS[form]} span")
+        out[form] = row
+        log(f"phase 15b mine{' --fused' if form == 'fused' else ''} "
+            f"--profile at the d20/n10/b20 pin: tip matches with and "
+            f"without; walls {row['plain']['wall_s']} s without, "
+            f"{row['profiled']['wall_s']} s with the capture (the CLI "
+            f"calls {row['plain']['cli_wall_s']:.6f} and "
+            f"{row['profiled']['cli_wall_s']:.6f} s); the trace holds "
+            f"{row['trace']['kernels']} kernels for {sweeps} sweep and "
+            f"{steps} step launches, each launched inside "
+            f"{LAUNCH_SPANS[form]}; spans {row['trace']['spans']}; 10 "
+            f"block_mined on the ring; {nvidia_smi('name,power.limit')}")
+    return out
+
+
+def graft_twin() -> dict:
+    """Phase 15 (c): ``graft_entry.dryrun_multichip(GRAFT_MINERS)`` and
+    ``entry()`` on the card give the CPU's line and numbers."""
+    from mpi_blockchain_tpu_torch import graft_entry
+    from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
+
+    lines, entries = {}, {}
+    for dev in ("cpu", "cuda"):
+        sha256_cuda.launches = sha256_block.step_launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            graft_entry.dryrun_multichip(GRAFT_MINERS, device=dev)
+        launches = (sha256_cuda.launches, sha256_block.step_launches)
+        lines[dev] = [ln for ln in buf.getvalue().splitlines()
+                      if ln.startswith("dryrun_multichip(")]
+        fn, args = graft_entry.entry(device=dev)
+        entries[dev] = [int(x) for x in fn(*args)]
+    check(lines["cuda"] == lines["cpu"] and len(lines["cuda"]) == 1,
+          f"15c dryrun_multichip({GRAFT_MINERS}): card {lines['cuda']}, "
+          f"CPU {lines['cpu']}")
+    check(entries["cuda"] == entries["cpu"] and entries["cuda"][0] > 0,
+          f"15c entry(): card {entries['cuda']}, CPU {entries['cpu']}")
+    log(f"phase 15c graft_entry on the card: {lines['cuda'][0]} (the CPU's "
+        f"line); entry() {entries['cuda']} == the CPU's; dry run launches "
+        f"(sweeps, steps) {launches}")
+    return {"line": lines["cuda"][0], "entry": entries["cuda"],
+            "sweeps": launches[0], "steps": launches[1]}
+
+
+def phase_ported_paths(mesh: dict | None = None,
+                       fused: dict | None = None) -> dict:
+    """Phase 15: the last of the reference's paths on the card, (a) to
+    (d) as the module docstring says. Returns the numbers."""
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as td:
+        out["fused_world"] = fused_world(
+            td, mesh["world"]["wall_s"] if mesh else None,
+            fused["wall_s"] if fused else None)
+        out["profile"] = profiled_mines(td)
+    out["graft"] = graft_twin()
+    return out
+
+
 def phase_perfwatch(device, bench: dict | None = None,
                     world: str | None = None) -> dict:
     """Phase 14: the perf sentinel's CLIs on the card (module docstring).
@@ -3837,6 +4131,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     keep = tempfile.mkdtemp(prefix="chip_smoke_")
+    # The runs in this process print a block_mined line a block (the event
+    # stream's INFO on stderr): into a file here, so that the output stays
+    # readable; the ring keeps them as well.
+    from mpi_blockchain_tpu_torch.utils.logging import get_logger
+    events_log = open(os.path.join(keep, "events.log"), "w")
+    get_logger().handlers[0].setStream(events_log)
     try:
         device = torch.device("cuda", 0)
         card = nvidia_smi("name,power.limit")
@@ -3872,13 +4172,17 @@ def main() -> int:
         mesh_obs = phase_mesh_obs(device, keep_world=world)
         elastic = phase_elastic(device)
         perfwatch = phase_perfwatch(device, bench, world)
+        ported = phase_ported_paths(mesh, fused[(24, 1000)])
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
+        get_logger().handlers[0].setStream(sys.stderr)
+        events_log.close()
         shutil.rmtree(keep, ignore_errors=True)
     f24, f16 = fused[(24, 1000)], fused[(16, 30)]
+    world15 = ported["fused_world"]["launches"]
     log(f"card: {card}")
     log(json.dumps({"kernels": [{
         "name": "sha256d_sweep", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3923,10 +4227,16 @@ def main() -> int:
             "c_mesh": {form: elastic["mesh"][form]["launches"]
                        for form in ("fault", "clean")}},
         "launches_perfwatch": perfwatch["launches"],
+        "launches_ported_paths": {
+            "a_fused_world_by_rank": [c["sweep_launches"] for c in world15],
+            "b_profile": {form: [r["sweeps"] for r in
+                                 (row["plain"], row["profiled"])]
+                          for form, row in ported["profile"].items()},
+            "c_graft": ported["graft"]["sweeps"]},
         "bench": bench, "mesh8": mesh, "resilience": resilience,
         "sim": sim, "serve": serve, "trace": trace,
         "mesh_obs": mesh_obs, "elastic": elastic,
-        "perfwatch": perfwatch}, {
+        "perfwatch": perfwatch, "ported_paths": ported}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",
@@ -3938,6 +4248,12 @@ def main() -> int:
         "launches_serve": serve["step_launches"],
         "launches_trace_fused_d24_n1000": trace["fused"]["steps"],
         "launches_mesh_obs_fused_d24_n1000": mesh_obs["fused"]["steps"],
+        "launches_ported_paths": {
+            "a_fused_world_by_rank": [c["step_launches"] for c in world15],
+            "b_profile_fused": [r["steps"] for r in (
+                ported["profile"]["fused"]["plain"],
+                ported["profile"]["fused"]["profiled"])],
+            "c_graft": ported["graft"]["steps"]},
         "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
         "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
     log(json.dumps({"ok": True, "device": {

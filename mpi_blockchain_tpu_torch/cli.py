@@ -10,7 +10,10 @@
     python -m mpi_blockchain_tpu_torch mine --fault-plan plan.json|seed:N
     python -m mpi_blockchain_tpu_torch mine --preset tpu-mesh8 [--fused]
     python -m mpi_blockchain_tpu_torch mine --difficulty 20 --blocks 10 \
-        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0 \
+        [--fused --blocks-per-call 100]
+    python -m mpi_blockchain_tpu_torch mine --difficulty 20 --blocks 10 \
+        --profile DIR
     python -m mpi_blockchain_tpu_torch mine --elastic --process-id 1 \
         --num-processes 4 --mesh-obs DIR --events-dump causal_1.json
     python -m mpi_blockchain_tpu_torch mine --elastic --miners 4
@@ -39,9 +42,14 @@ logical miners in this process; ``--coordinator/--num-processes/
 --process-id`` make this process one miner of a world of processes
 (gloo, ``parallel/distributed.py``), every process running the same
 command, and rank 0 alone writes ``--out``, ``--checkpoint`` and the
-summary. ``bench`` measures the sweep rate (``--mode sweep``) or a whole
-chain's wall (``--mode chain``) and prints one JSON payload
-(``bench_lib.py``).
+summary; with ``--fused`` each rank drives the fused loop a round at a
+time, its slice of each round, with the round's winner selected over
+gloo (``models/fused.py``). ``mine --profile DIR`` captures a
+``torch.profiler`` trace of the mine into DIR (``utils/profiling.py``).
+``mine`` prints a ``block_mined`` JSON line a block on stderr through the
+event stream, as the reference's does. ``bench`` measures the sweep rate
+(``--mode sweep``) or a whole chain's wall (``--mode chain``) and prints
+one JSON payload (``bench_lib.py``).
 
 ``mine --elastic`` survives a dead peer (``resilience/elastic.py``). As
 one rank of a process-per-rank world (``--process-id/--num-processes``,
@@ -120,6 +128,7 @@ plan, or a strict one that did not fire in full.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -377,11 +386,6 @@ def cmd_mine(args) -> int:
             "--elastic needs the per-block miner (drop --fused): the "
             "fused device loop has no per-block supervision point to "
             "evict and re-stripe at")
-    if args.fused and args.coordinator:
-        raise ConfigError(
-            "--fused with --coordinator needs a collective inside the "
-            "k-block call, which is not ported yet (ROADMAP §A); drop "
-            "--fused to mine as a world of processes")
     cfg, group, is_main = _init_world(args, cfg)
     try:
         return _mine(args, cfg, group, is_main)
@@ -396,8 +400,8 @@ def _mine(args, cfg, group, is_main: bool) -> int:
     from .models.miner import Miner
 
     if args.verbose:
-        logging.basicConfig(level=logging.DEBUG, stream=sys.stderr,
-                            format="%(message)s")
+        from .utils.logging import get_logger
+        get_logger().setLevel(logging.DEBUG)
     if args.checkpoint_every:
         if args.checkpoint_every < 0:
             raise ConfigError(f"--checkpoint-every must be >= 1, "
@@ -409,7 +413,8 @@ def _mine(args, cfg, group, is_main: bool) -> int:
     if args.elastic:
         miner, world = _elastic_miner(args, cfg)
     elif args.fused:
-        miner = FusedMiner(cfg, blocks_per_call=args.blocks_per_call)
+        miner = FusedMiner(cfg, blocks_per_call=args.blocks_per_call,
+                           group=group)
     elif group is not None:
         from .backend import backend_from_config
         miner = Miner(cfg, backend=backend_from_config(cfg, group=group))
@@ -455,19 +460,25 @@ def _mine(args, cfg, group, is_main: bool) -> int:
               f"{service_state.server.port} "
               f"(/submit /tx_status /chain /template)",
               file=sys.stderr, flush=True)
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from .utils.profiling import trace_mining
+        profile_ctx = trace_mining(args.profile)
     t0 = time.perf_counter()
     try:
-        if args.fused:
-            # The fused loop appends whole device spans: save at span
-            # boundaries (every span is at least one block of progress).
-            miner.mine_chain(remaining, on_progress=save)
-        else:
-            on_block = None
-            if save is not None:
-                def on_block(rec):
-                    if rec.height % args.checkpoint_every == 0:
-                        save(rec.height)
-            miner.mine_chain(remaining, on_block=on_block)
+        with profile_ctx:
+            if args.fused:
+                # The fused loop appends whole device spans: save at span
+                # boundaries (every span is at least one block of
+                # progress).
+                miner.mine_chain(remaining, on_progress=save)
+            else:
+                on_block = None
+                if save is not None:
+                    def on_block(rec):
+                        if rec.height % args.checkpoint_every == 0:
+                            save(rec.height)
+                miner.mine_chain(remaining, on_block=on_block)
     finally:
         if service_state is not None:
             # Stats before teardown, and the door closes on every exit
@@ -893,7 +904,8 @@ def main(argv: list[str] | None = None) -> int:
     p_mine.add_argument("--blocks-per-call", type=int, default=16)
     p_mine.add_argument("--out", help="write the chain to this file")
     p_mine.add_argument("--verbose", action="store_true",
-                        help="per-block JSON lines on stderr")
+                        help="debug records on stderr too (the per-block "
+                             "block_mined JSON lines print without it)")
     p_mine.add_argument("--checkpoint",
                         help="save the chain + config sidecar here when "
                              "done (atomic write + integrity trailer)")
@@ -917,6 +929,11 @@ def main(argv: list[str] | None = None) -> int:
                         help="multi-process launch: world size")
     p_mine.add_argument("--process-id", type=int, default=None,
                         help="multi-process launch: this process's rank")
+    p_mine.add_argument("--profile", metavar="DIR",
+                        help="capture a torch.profiler trace of the mine "
+                             "(the card's kernels and the host spans) "
+                             "into this logdir, one Chrome trace a "
+                             "process (view with ui.perfetto.dev)")
     p_mine.add_argument("--serve", metavar="PORT", type=int, default=None,
                         help="open the blockserve front door on PORT "
                              "(0 = ephemeral) while mining: /submit "

@@ -26,18 +26,39 @@ With ``n_miners`` N > 1 in one process (the reference's mesh of N
 devices), a round covers N x B nonces and each block's sweep range ends
 at the last whole round below 2^32, as the reference's round loop does;
 the lowest-nonce winner does not depend on N, so the launches do not
-change. A world of processes would need a collective inside the k-block
-call; it is not ported (the CLI refuses ``--fused`` with
-``--coordinator``).
+change.
+
+In a world of N processes (``group``, a ``torch.distributed`` group of N
+ranks: ``mine --fused --coordinator``) the reference's collective inside
+the k-block loop is gloo's, on the host, so the host drives each call a
+round at a time (``_WorldCall``): the step kernel builds each header on
+the card as above; rank i sweeps its slice [r N B + i B, + B) of round r
+with the constant-ext sweep into a result buffer of its own, reads back
+its (count, min) and runs ``winner_select`` over the group; the first
+round whose summed count is above 0 ends the block, and the selected
+(count, min), the same on every rank, is copied into the step's result
+buffer, from which the next step finalizes the block. A block with no
+qualifier below the cap keeps the reset 0xFFFFFFFF. Every branch (next
+round, next block, recovery, rollover) is taken on selected values only,
+so every rank takes it. Call i + 1 needs call i's tip, which needs call
+i's last winner-select, so one call is in flight: call i + 1's first
+step and slice go on the card before the host validates and appends
+call i, and its rounds run when it is waited for. The recovery search is
+the world's (``backend_from_config(..., group=)``), as the reference's
+is its mesh's.
 
 Tracing, as in the reference: one ``meshwatch.pipeline`` dispatch record
 per k-block call (``kind="fused"``, its height and k). Its ``enqueue``
 segment covers the input build and the call; its ``device`` window opens
-when the call returns and closes when the call's nonces are on the host
-(``_Readback.wait``), the reference's own definition (its window closes
-when the call's value materializes). Each block's ``validate`` and
-``append`` segments are recorded in that block's ``trace_block`` frame,
-so each block of a call keeps its own; a recovery bail-out strips the
+when the call returns (in a world, when its first slice was launched)
+and closes when the call's nonces are on the host (``wait``), the
+reference's own definition (its window closes when the call's value
+materializes). In a world each round's winner-select is a
+``skew_span(site="mesh.sweep")``, as in the per-block world. Each block's
+``validate`` and ``append`` segments, and its records (``block_mined``
+through ``log_fn``, by default the event stream), are made in that
+block's ``trace_block`` frame, so each block of a call keeps its own
+and its records carry its trace stamp; a recovery bail-out strips the
 block identity of the calls it abandons (``strip_block_identity``); and
 ``observe_batch_metrics`` observes the span's blocks after the
 ``on_progress`` seam. The first use of each k-block program is a compile
@@ -51,8 +72,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import json
-import logging
 import time
 from typing import Callable
 
@@ -68,12 +87,15 @@ from ..config import MAX_EXTRA_NONCE, ConfigError, MinerConfig, \
     extend_payload
 from ..dispatchwatch import compile_scope, current_site, note_cache, \
     record_compile
+from ..meshprof.spans import skew_span
 from ..meshwatch.pipeline import profiler, strip_block_identity
 from ..ops import resolve_kernel, sha256_block, sha256_cuda
+from ..parallel.mesh import winner_select
 from ..telemetry.spans import span
+from ..utils.logging import block_logger
 
-_LOGGER = logging.getLogger("mpi_blockchain_tpu_torch")
 NONCE_SPACE = 1 << 32
+_NOT_FOUND = 0xFFFFFFFF
 
 
 def _words_be(digest32: bytes) -> np.ndarray:
@@ -97,7 +119,8 @@ def sweep_cap(batch_pow2: int, max_rounds: int | None = None,
 def make_fused_miner(k_blocks: int, batch_pow2: int, difficulty_bits: int,
                      *, kernel: str = "auto",
                      device: str | torch.device = "cuda",
-                     max_rounds: int | None = None, n_miners: int = 1):
+                     max_rounds: int | None = None, n_miners: int = 1,
+                     group=None):
     """The k-block miner on ``device``.
 
     Returns ``fn(prev_words (8,), data_words (k, 8), start_height) ->
@@ -108,15 +131,47 @@ def make_fused_miner(k_blocks: int, batch_pow2: int, difficulty_bits: int,
     rejects it (``FusedMiner._recover_block``). With the CUDA kernels
     ("auto" on a CUDA device) a call enqueues everything and synchronizes
     nothing; "torch" runs the plain step and sweep on ``device``.
+
+    With ``group``, a process group of ``n_miners`` ranks, this process is
+    one rank of a world: ``fn`` starts a ``_WorldCall`` and returns it in
+    place of the nonces (its ``wait`` gives them) beside the tip tensor,
+    which holds the tip once the call was waited for. On a card the world
+    runs the CUDA kernels; "torch" there is refused.
     """
     device = resolve_device(device)
     kernel = resolve_kernel(kernel, device)
     cap = sweep_cap(batch_pow2, max_rounds, n_miners)
 
-    def fn(prev_words, data_words, start_height: int):
+    def check(data_words) -> None:
         if tuple(data_words.shape) != (k_blocks, 8):
             raise ValueError(f"data_words must have shape ({k_blocks}, 8), "
                              f"got {tuple(data_words.shape)}")
+
+    if group is not None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size(group)
+        if world != n_miners:
+            raise ConfigError(
+                f"the process group has {world} ranks but n_miners="
+                f"{n_miners}: the round split must match the world")
+        if device.type == "cuda" and kernel != "cuda":
+            raise ConfigError(
+                f"a fused world on a card runs the CUDA kernels, not "
+                f"kernel={kernel!r}")
+        batch = 1 << batch_pow2
+        slices = range(dist.get_rank(group) * batch, cap, n_miners * batch)
+
+        def world_fn(prev_words, data_words, start_height: int):
+            check(data_words)
+            call = _WorldCall(prev_words, data_words, int(start_height),
+                              difficulty_bits, slices, batch, group)
+            return call, call.tip
+
+        return world_fn
+
+    def fn(prev_words, data_words, start_height: int):
+        check(data_words)
         mine = (sha256_block.mine_k if kernel == "cuda"
                 else sha256_block.mine_k_plain)
         return mine(prev_words, data_words, int(start_height),
@@ -125,14 +180,88 @@ def make_fused_miner(k_blocks: int, batch_pow2: int, difficulty_bits: int,
     return fn
 
 
+class _WorldCall:
+    """One rank's k-block call in a world of processes, driven from the
+    host a round at a time (see the module's docstring). Made, it has put
+    the first block's step and this rank's slice of its first round on
+    the card (``opened``: when that slice was launched, on
+    ``time.perf_counter``); ``wait`` runs the rounds and winner-selects of
+    every block and the final step, and gives the selected nonces, the
+    same on every rank. ``waits`` counts the slices' read-backs from a
+    card; ``event`` is None (nothing is left to wait for after
+    ``wait``)."""
+
+    event = None
+
+    def __init__(self, prev: torch.Tensor, data: torch.Tensor,
+                 start_height: int, difficulty_bits: int, slices: range,
+                 batch: int, group):
+        device = prev.device
+        k = data.shape[0]
+        self.data, self.height, self.bits = data, start_height, \
+            difficulty_bits
+        self.slices, self.batch, self.group = slices, batch, group
+        self.on_card = device.type == "cuda"
+        self.waits = 0
+        # The first step builds a block, which resets the result buffer.
+        self.scratch = torch.empty(sha256_block.SCRATCH_WORDS,
+                                   dtype=torch.int32, device=device)
+        self.nonces = torch.empty(k, dtype=torch.uint32, device=device)
+        self.tip = torch.empty(8, dtype=torch.uint32, device=device)
+        sha256_block.step(self.scratch, prev=prev, data=data[0],
+                          height=start_height + 1,
+                          difficulty_bits=difficulty_bits)
+        self.opened = time.perf_counter()
+        self._first = self._slice(0) if slices else None
+
+    def _slice(self, r: int):
+        """Starts this rank's slice of round r of the block at hand."""
+        return sha256_block.slice_launch(self.scratch, self.slices[r],
+                                         self.batch, self.bits)
+
+    def _select(self, read) -> tuple[int, int]:
+        """Waits for this rank's slice and selects the round's winner
+        over the group."""
+        # The skew span stamps this rank's arrival at the round whose
+        # epilogue is the winner-select rendezvous.
+        with skew_span(site="mesh.sweep"):
+            local = read()
+            self.waits += self.on_card
+            return winner_select(*local, self.group)
+
+    def wait(self) -> list[int]:
+        k = self.data.shape[0]
+        read = self._first
+        nonces = []
+        for j in range(k):
+            best = _NOT_FOUND
+            for r in range(len(self.slices)):
+                count, best = self._select(read or self._slice(r))
+                read = None
+                if count > 0:
+                    sha256_block.put_result(self.scratch, count, best)
+                    break
+            nonces.append(best)
+            last = j + 1 == k
+            sha256_block.step(
+                self.scratch, data=None if last else self.data[j + 1],
+                height=self.height + j + 2, difficulty_bits=self.bits,
+                nonce_out=self.nonces[j:j + 1],
+                tip_out=self.tip if last else None)
+            if not last and self.slices:
+                read = self._slice(0)
+        return nonces
+
+
 class _Readback:
     """A call's nonces on their way to the host: a pinned buffer filled by
     a copy on the call's stream, and an event recorded after it."""
 
     def __init__(self, nonces: torch.Tensor):
         if nonces.device.type == "cpu":
-            self.host, self.event = nonces, None
+            self.host, self.event, self.waits = nonces, None, 0
             return
+        self.waits = 1
         self.host = torch.empty(nonces.shape, dtype=nonces.dtype,
                                 pin_memory=True)
         self.host.copy_(nonces, non_blocking=True)
@@ -152,7 +281,7 @@ class _Readback:
 class _Batch:
     height: int              # chain height the call started from
     payloads: list[bytes]
-    nonces: _Readback
+    nonces: _Readback | _WorldCall
     prec: object             # the call's pipeline record
     t_issue: float           # when the call returned (profiler clock)
 
@@ -160,7 +289,8 @@ class _Batch:
 class FusedMiner:
     """Chain driver over the fused k-block loop: the same chain as
     ``Miner`` (the lowest-nonce rule is unchanged), one host call per k
-    blocks."""
+    blocks. With ``group`` this process is one rank of a world of
+    ``config.n_miners`` processes (``_WorldCall``)."""
 
     #: Most calls in flight: enough that the device never drains while the
     #: host validates, few enough that a validation failure wastes at most
@@ -168,7 +298,8 @@ class FusedMiner:
     PIPELINE_DEPTH = 4
 
     def __init__(self, config: MinerConfig, blocks_per_call: int = 16,
-                 recovery_backend=None):
+                 recovery_backend=None, group=None,
+                 log_fn: Callable[[dict], None] | None = None):
         if blocks_per_call < 1:
             raise ConfigError(
                 f"blocks_per_call must be >= 1, got {blocks_per_call}")
@@ -184,17 +315,20 @@ class FusedMiner:
         self.effective_kernel = resolve_kernel(config.kernel, self.device)
         self.node = core.Node(config.difficulty_bits)
         self.blocks_per_call = blocks_per_call
+        self._group = group
+        # A world's call i + 1 starts from call i's selected winners.
+        self.pipeline_depth = self.PIPELINE_DEPTH if group is None else 1
+        # Where the block_mined and nonce_space_exhausted records go: by
+        # default the event stream (INFO on stderr, and ringed).
+        self._log = log_fn if log_fn is not None else block_logger()
         self._fns: dict[int, Callable] = {}
         # Per-block backend for the nonce-exhaustion rollover; built lazily
         # (the path is all but unreachable below difficulty ~34). Tests
         # inject one to stage an exhaustion.
         self._recovery = recovery_backend
-        #: Host waits for the device so far: one per call on a CUDA device.
+        #: Host waits for the device so far: one per call on a CUDA
+        #: device, one per round's read-back in a world on a card.
         self.host_waits = 0
-
-    @staticmethod
-    def _log(event: dict) -> None:
-        _LOGGER.debug("%s", json.dumps(event, sort_keys=True))
 
     def _fn(self, k: int):
         """The cached k-block program. Its first use is one compile in
@@ -208,7 +342,7 @@ class FusedMiner:
                     k, self.config.effective_batch_pow2,
                     self.config.difficulty_bits,
                     kernel=self.effective_kernel, device=self.device,
-                    n_miners=self.config.n_miners)
+                    n_miners=self.config.n_miners, group=self._group)
                 record_compile(site=current_site(), stage="program",
                                duration_s=time.perf_counter() - t0)
             note_cache(site="fused", entries=len(self._fns))
@@ -256,9 +390,10 @@ class FusedMiner:
 
     def _mine_span(self, n: int) -> int:
         """Enqueues ceil(n / blocks_per_call) calls back to back, at most
-        ``PIPELINE_DEPTH`` in flight, and validates and appends batch by
+        ``pipeline_depth`` in flight, and validates and appends batch by
         batch. Call i + 1's prev_hash is call i's tip tensor, so calls
-        queue with no host round trip between them.
+        queue with no host round trip between them (in a world, call i + 1
+        starts after call i was waited for, before its validation).
 
         Returns the number of blocks appended: short only when a block
         fails C++ validation. That height is then re-mined through the
@@ -282,25 +417,29 @@ class FusedMiner:
                 with span("fused.dispatch", k=k, height=height):
                     nonces, prev = self._fn(k)(prev, self._to_device(data),
                                                height)
-                readback = _Readback(nonces)
+            if isinstance(nonces, _WorldCall):
+                readback, t_issue = nonces, prec.at(nonces.opened)
+            else:
+                readback, t_issue = _Readback(nonces), prec.now()
             batches.append(_Batch(height, payloads, readback, prec,
-                                  prec.now()))
+                                  t_issue))
             height += k
             remaining -= k
 
-        while remaining > 0 and len(batches) < self.PIPELINE_DEPTH:
+        while remaining > 0 and len(batches) < self.pipeline_depth:
             dispatch_one()
         while batches:
             batch = batches.popleft()
             prec = batch.prec
-            self.host_waits += batch.nonces.event is not None
             nonces = batch.nonces.wait()
+            self.host_waits += batch.nonces.waits
             prec.add_segment("device", batch.t_issue, prec.now())
             if remaining > 0:
                 dispatch_one()
             for j, payload in enumerate(batch.payloads):
                 # Each block's frame: its validate and append segments in
-                # the call's record stay its own in the critical path.
+                # the call's record stay its own in the critical path, and
+                # its records carry its trace stamp.
                 with trace_block(batch.height + j + 1):
                     with prec.segment("validate"):
                         cand = self.node.make_candidate(payload)
@@ -308,21 +447,23 @@ class FusedMiner:
                     with span("miner.append", height=batch.height + j + 1), \
                             prec.segment("append"):
                         accepted = self.node.submit(winner)
-                if not accepted:
-                    # The calls still in flight mined on a tip that is now
-                    # wrong; their results are dropped. Their heights will
-                    # be mined again, so their records lose the block
-                    # identity (this call keeps the j blocks it appended,
-                    # and its exact per-block segments).
-                    strip_block_identity(prec.record, keep_k=j)
-                    for stale in batches:
-                        strip_block_identity(stale.prec.record)
-                    self._recover_block(batch.height + j + 1, nonces[j])
-                    return self.node.height - start
-                self._log({"event": "block_mined", "backend": "cuda-fused",
-                           "height": batch.height + j + 1,
-                           "nonce": nonces[j],
-                           "hash": self.node.tip_hash.hex()})
+                    if not accepted:
+                        # The calls still in flight mined on a tip that is
+                        # now wrong; their results are dropped. Their
+                        # heights will be mined again, so their records
+                        # lose the block identity (this call keeps the j
+                        # blocks it appended, and its exact per-block
+                        # segments).
+                        strip_block_identity(prec.record, keep_k=j)
+                        for stale in batches:
+                            strip_block_identity(stale.prec.record)
+                        self._recover_block(batch.height + j + 1, nonces[j])
+                        return self.node.height - start
+                    self._log({"event": "block_mined",
+                               "backend": "cuda-fused",
+                               "height": batch.height + j + 1,
+                               "nonce": nonces[j],
+                               "hash": self.node.tip_hash.hex()})
         return self.node.height - start
 
     def _recover_block(self, height: int, device_nonce: int) -> None:
@@ -364,7 +505,8 @@ class FusedMiner:
 
     def _recovery_backend(self):
         if self._recovery is None:
-            self._recovery = backend_from_config(self.config)
+            self._recovery = backend_from_config(self.config,
+                                                 group=self._group)
         return self._recovery
 
     @property

@@ -93,8 +93,6 @@ import collections
 import concurrent.futures
 import dataclasses
 import functools
-import json
-import logging
 import os
 import time
 from typing import Callable
@@ -111,8 +109,7 @@ from ..telemetry import counter, heartbeat, histogram
 from ..telemetry.events import emit_event, env_number
 from ..telemetry.registry import telemetry_disabled
 from ..telemetry.spans import span
-
-_LOGGER = logging.getLogger("mpi_blockchain_tpu_torch")
+from ..utils.logging import block_logger
 
 #: Budget (seconds) for one in-flight dispatch at the pipelined consume
 #: point: a sweep that has not completed by then is taken as wedged and
@@ -204,12 +201,16 @@ class Miner:
 
     def __init__(self, config: MinerConfig,
                  backend: MinerBackend | None = None,
-                 pipeline: bool | None = None):
+                 pipeline: bool | None = None,
+                 log_fn: Callable[[dict], None] | None = None):
         self.config = config
         self.node = core.Node(config.difficulty_bits)
         self.backend = (backend if backend is not None
                         else backend_from_config(config))
         self.records: list[BlockRecord] = []
+        # Where the block_mined and nonce_space_exhausted records go: by
+        # default the event stream (INFO on stderr, and ringed).
+        self._log = log_fn if log_fn is not None else block_logger()
         if pipeline is None:
             pipeline = os.environ.get("MPIBT_PIPELINE", "1") != "0"
         self.pipeline = pipeline
@@ -227,10 +228,6 @@ class Miner:
         sweep covers, searched in order until one holds a qualifier. The
         default miner owns the whole uint32 space in one window."""
         return ((0, 1 << 32),)
-
-    @staticmethod
-    def _log(event: dict) -> None:
-        _LOGGER.debug("%s", json.dumps(event, sort_keys=True))
 
     def payload_for(self, height: int) -> bytes:
         """The payload the candidate at ``height`` embeds. Both drivers

@@ -24,11 +24,16 @@ whole k-block call of the fused loop (step, copy of the ext into the
 sweep's ``__constant__`` symbol, early-exit sweep, k times, then a final
 step) in one call into the library;
 ``mine_k_plain`` is the same sequence with the plain step and the plain
-sweep.
+sweep. A rank of a world of processes drives the same loop from the host,
+a round at a time: ``slice_launch`` sweeps its slice of a round of the
+block whose ext a step built, into a result buffer of its own, and
+``put_result`` writes the round's winner-select into the scratch's result
+buffer, from which the next step finalizes the block.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Callable
 
 import torch
 
@@ -327,6 +332,46 @@ def mine_k_plain(prev_words: torch.Tensor, data_words: torch.Tensor,
             store_words(scratch[:2], torch.tensor(
                 [min(count, M32), best], dtype=torch.int64, device=device))
     return nonces, tip
+
+
+def slice_launch(scratch: torch.Tensor, base: int, count: int,
+                 difficulty_bits: int) -> Callable[[], tuple[int, int]]:
+    """Starts an early-exit sweep of [base, base + count) of the block
+    whose extended midstate a step built into ``scratch``, into a result
+    buffer of its own: the scratch's stays the block's, for the round's
+    winner-select (``put_result``). Returns the function that waits for it
+    and gives (count, min_nonce). On a CUDA device this enqueues the
+    constant-ext sweep kernel on the current stream or raises; on the CPU
+    it runs the plain sweep."""
+    _check_scratch(scratch)
+    ext = scratch[SCRATCH_EXT:SCRATCH_MIDSTATE]
+    device = scratch.device
+    if device.type == "cpu":
+        res = sha256_torch.sweep_core_ext(to_words(ext), base, count,
+                                          difficulty_bits, early_exit=True)
+        return lambda: res
+    with torch.cuda.device(device), \
+            sha256_cuda.kernel_errors("sha256d_sweep launch"):
+        out = sha256_cuda.fresh_result(device)
+        sha256_cuda.launch(ext, base, count, difficulty_bits, out,
+                           early_exit=True)
+    return lambda: sha256_cuda.read_result(out)
+
+
+def put_result(scratch: torch.Tensor, count: int, min_nonce: int) -> None:
+    """Writes a round's (count, min_nonce) into ``scratch``'s result
+    buffer, where the next step reads the block's winner: an 8-byte copy
+    on the current stream of its device (from pinned memory, without a
+    host sync, on a card)."""
+    _check_scratch(scratch)
+    src = torch.tensor([w - (1 << 32) if w >= 1 << 31 else w
+                        for w in (min(count, M32), min_nonce)],
+                       dtype=torch.int32)
+    dst = scratch[SCRATCH_RESULT:SCRATCH_RESULT + 2]
+    if scratch.device.type == "cpu":
+        dst.copy_(src)
+    else:
+        dst.copy_(src.pin_memory(), non_blocking=True)
 
 
 def _event_handles(events: list | None, n: int, name: str):

@@ -380,6 +380,12 @@ class _FreshBuffers(threading.local):
 _fresh_buffers = _FreshBuffers()
 
 
+def fresh_result(device: torch.device) -> torch.Tensor:
+    """A reset result buffer on a CUDA ``device``: a copy, on the current
+    stream, of this thread's fresh one (no upload from the host)."""
+    return _fresh_buffers.get(device).clone()
+
+
 class _Timing(threading.local):
     """Per thread: whether ``sweep_launch`` brackets sweeps with timing
     events (``timed_launches``)."""
@@ -515,7 +521,7 @@ def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     with kernel_errors("sha256d_sweep launch"):
-        out = _fresh_buffers.get(device).clone()
+        out = fresh_result(device)
         if not _timing.on or count <= 0:
             launch(ext_host, base, count, difficulty_bits, out,
                    early_exit=early_exit)

@@ -473,8 +473,9 @@ class ElasticMiner(Miner):
     template covers the whole space exactly once, which is the throughput
     contract striping exists for."""
 
-    def __init__(self, config, world: ElasticWorld, backend=None):
-        super().__init__(config, backend=backend)
+    def __init__(self, config, world: ElasticWorld, backend=None,
+                 log_fn=None):
+        super().__init__(config, backend=backend, log_fn=log_fn)
         self.world = world
 
     def search_windows(self):

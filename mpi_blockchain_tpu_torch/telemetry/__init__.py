@@ -13,8 +13,9 @@ the front door's accept gate read), this process's mesh rank
 records carry it, ``rank_counter`` labels with it) and a Prometheus dump.
 ``python -m mpi_blockchain_tpu_torch.telemetry`` (``__main__``) runs the
 instrumented mine and faulted simulation on the card (``--device cpu``:
-the C++ sweep) and prints the snapshot. The profiler capture waits for a
-later slice of the port. All of it is host-side and standard library only.
+the C++ sweep) and prints the snapshot. The profiler capture that nests
+the spans beside the card's kernels is ``utils/profiling.py``
+(``mine --profile``). All of it is host-side and standard library only.
 """
 from __future__ import annotations
 

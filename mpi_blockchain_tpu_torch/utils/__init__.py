@@ -1,2 +1,3 @@
-"""Utilities of the port: crash-safe chain checkpoints (``checkpoint``)
-and the JSON-lines logging helpers (``logging``)."""
+"""Utilities of the port: crash-safe chain checkpoints (``checkpoint``),
+the JSON-lines logging helpers (``logging``) and the profiler capture of a
+mining run (``profiling``)."""

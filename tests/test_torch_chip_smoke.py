@@ -722,3 +722,60 @@ def test_phase_13_run_module_reads_the_skew_smokes_refusal():
     got = chip_smoke.run_module("mpi_blockchain_tpu_torch.meshwatch",
                                 ["skew-smoke"], 120)
     assert got["rc"] == 2 and got["out"]["event"] == "error"
+
+
+def test_phase_15_world_argv_runs_the_cli_through_the_counting_entry():
+    argv = chip_smoke.world_argv(chip_smoke.FUSED_WORLD_CHAIN,
+                                 ["--fused"], 4321, 1)
+    assert argv[1:5] == ["-X", "faulthandler",
+                         *chip_smoke.WORLD_COUNTING_ENTRY]
+    assert argv[5:] == ["mine", *chip_smoke.FUSED_WORLD_CHAIN, "--fused",
+                        "--verbose", "--coordinator", "127.0.0.1:4321",
+                        "--num-processes", "2", "--process-id", "1"]
+    assert (24, 1000, 24) in chip_smoke.PINNED_TIPS
+    assert chip_smoke.FUSED_WORLD_CHAIN == ("--difficulty", "24", "--blocks",
+                                            "1000", "--batch-pow2", "24")
+
+
+def test_phase_15_gloo_world_mines_a_given_chain_fused(tmp_path,
+                                                       monkeypatch):
+    """The generalized ``gloo_world`` on the CPU (the plain versions, an
+    easier chain pinned to the C++ sweep's tip): both ranks reach the pin,
+    rank 0 alone prints, and each rank reports its launches (none of a
+    card kernel here) and one block_mined a block."""
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+
+    oracle = Miner(MinerConfig(difficulty_bits=11, n_blocks=4,
+                               backend="cpu"))
+    oracle.mine_chain()
+    monkeypatch.setitem(chip_smoke.PINNED_TIPS, (11, 4, 9),
+                        oracle.node.tip_hash.hex())
+    out = tmp_path / "world.bin"
+    summary, got, wall = chip_smoke.gloo_world(
+        str(tmp_path), ["--device", "cpu", "--fused", "--blocks-per-call",
+                        "2", "--out", str(out)], "15a on the CPU",
+        chain=("--difficulty", "11", "--blocks", "4", "--batch-pow2", "9"),
+        pin=(11, 4, 9))
+    assert summary["fused"] and wall > 0
+    assert out.read_bytes() == oracle.node.save()
+    for _, err in got:
+        assert chip_smoke.rank_counts(err) == {"sweep_launches": 0,
+                                               "step_launches": 0}
+        assert chip_smoke.block_heights(err) == [1, 2, 3, 4]
+    nonces = chip_smoke.chain_nonces(out.read_bytes())
+    assert chip_smoke.world_rounds(nonces, 2 << 9) == sum(
+        n // 1024 + 1 for n in nonces) >= 4
+    assert core.Node(11).load(out.read_bytes())
+
+
+def test_phase_15_world_rounds_and_block_heights():
+    assert chip_smoke.world_rounds([0, 1023, 1024, 5000], 1024) == \
+        1 + 1 + 2 + 5
+    assert chip_smoke.world_rounds([], 1024) == 0
+    err = "\n".join(['{"event": "block_mined", "height": 1}',
+                     "[W socket.cpp] a warning",
+                     '{"event": "retry"}',
+                     '{"event": "block_mined", "height": 2}'])
+    assert chip_smoke.block_heights(err) == [1, 2]

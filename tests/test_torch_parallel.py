@@ -378,11 +378,6 @@ def test_speculative_dispatch_discarded_on_both_ranks():
 
 
 def test_world_configuration_errors(capsys):
-    assert main(["mine", "--device", "cpu", "--fused", "--coordinator",
-                 "127.0.0.1:1", "--num-processes", "2",
-                 "--process-id", "0"]) == 2
-    err = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert "ROADMAP" in err["error"] and "--fused" in err["error"]
     assert main(["mine", "--device", "cpu", "--coordinator",
                  "127.0.0.1:1"]) == 2
     err = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -46,6 +46,17 @@ def _run(fn, argv) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
+#: Fields of a record that the run's own clock writes.
+CLOCK_FIELDS = ("wall_ms",)
+
+
+def _ring_lines(text: str) -> list[dict]:
+    """The JSON records a run printed, without their clock fields."""
+    return [{k: v for k, v in json.loads(line).items()
+             if k not in CLOCK_FIELDS}
+            for line in text.splitlines() if line.startswith("{")]
+
+
 def _types(text: str) -> set[tuple[str, str]]:
     return set(re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M))
 
@@ -73,8 +84,12 @@ def test_the_snapshot_has_the_references_metric_names(argv, tmp_path):
         (tmp_path / "r.prom").read_text()
     assert _types(dump) == _types(ref_dump)
     if "--events" in argv:
-        # The ring, after the snapshot. The port's Miner logs its
-        # block_mined records at DEBUG, off the ring (ROADMAP §C).
+        # The ring, after the snapshot: the reference's records, a
+        # block_mined for every block, but for the fields the reference's
+        # own clock writes.
+        ring = _ring_lines(out)
+        assert ring == _ring_lines(ref_out)
+        assert [r["event"] for r in ring] == ["block_mined"] * 3
         assert [line for line in out.splitlines() if line.startswith("{")] \
             == [json.dumps(rec, sort_keys=True, default=str)
                 for rec in telemetry.recent_events()]
@@ -116,3 +131,59 @@ def test_no_card_exits_2_unless_asked_for_the_cpu(monkeypatch):
     assert "no CUDA device" in json.loads(out.strip().splitlines()[-1])[
         "error"]
     assert telemetry.counter("mining_rounds_total").value == 0
+
+
+@pytest.mark.parametrize("form", ["sequential", "pipelined", "fused"])
+def test_the_miners_hand_the_references_records_to_log_fn(form):
+    """``Miner(log_fn=)`` and ``FusedMiner(log_fn=)`` receive every
+    record; by default the records go to the event ring, where they carry
+    the reference's keys and values (but the clock's and the fused
+    backend's name) and the ``trace`` stamp the reference's carry."""
+    from mpi_blockchain_tpu.config import MinerConfig as RefConfig
+    from mpi_blockchain_tpu.models.fused import FusedMiner as RefFusedMiner
+    from mpi_blockchain_tpu.models.miner import Miner as RefMiner
+    from mpi_blockchain_tpu_torch.config import MinerConfig
+    from mpi_blockchain_tpu_torch.models.fused import FusedMiner
+    from mpi_blockchain_tpu_torch.models.miner import Miner
+
+    if form == "fused":
+        cfg = dict(difficulty_bits=8, n_blocks=3, batch_pow2=10)
+
+        def ours(**kw):
+            return FusedMiner(MinerConfig(**cfg, device="cpu"),
+                              blocks_per_call=2, **kw)
+
+        def ref():
+            return RefFusedMiner(RefConfig(**cfg, backend="tpu",
+                                           kernel="jnp"), blocks_per_call=2)
+    else:
+        cfg = dict(difficulty_bits=8, n_blocks=3, backend="cpu")
+        pipeline = form == "pipelined"
+
+        def ours(**kw):
+            return Miner(MinerConfig(**cfg), pipeline=pipeline, **kw)
+
+        def ref():
+            return RefMiner(RefConfig(**cfg), pipeline=pipeline)
+    got = []
+    ours(log_fn=got.append).mine_chain()
+    assert telemetry.recent_events() == []
+    ours().mine_chain()
+    ref().mine_chain()
+    ringed = [{k: v for k, v in r.items() if k not in CLOCK_FIELDS}
+              for r in telemetry.recent_events()]
+    ref_ringed = [{k: v for k, v in r.items() if k not in CLOCK_FIELDS}
+                  for r in ref_telemetry.recent_events()]
+    if form == "fused":
+        assert {r.pop("backend") for r in ringed} == {"cuda-fused"}
+        assert {r.pop("backend") for r in ref_ringed} == {"tpu-fused"}
+        for r in got:
+            r.pop("backend")
+    assert ringed == ref_ringed
+    assert [r["event"] for r in ringed] == ["block_mined"] * 3
+    # The fused miners log inside each block's trace frame, the Miners
+    # after it.
+    assert all(("trace" in r) == (form == "fused") for r in ringed)
+    assert [{k: v for k, v in r.items() if k not in CLOCK_FIELDS}
+            for r in got] == [{k: v for k, v in r.items() if k != "trace"}
+                              for r in ringed]

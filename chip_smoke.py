@@ -249,6 +249,23 @@ then:
    and give what they do on the CPU. (d) The ``block_mined`` records of
    (a) and (b) are the repair of the event stream; phases 6 a and 11 read
    its price.
+16. static analysis and sanitizers on the card: (a) the port's chainlint,
+   ``python -m mpi_blockchain_tpu_torch.analysis --audit-suppressions
+   --json``, over this machine's tree (which has no jax, so it also
+   proves the package imports none): rc 0, no finding, no stale
+   suppression, every family timed; its notes (the sanitizer pass says
+   whether compute-sanitizer could check here) are printed; (b) the
+   sanitizer driver (``ops/csrc/sanitize_main.cu``, built with the
+   kernels at the start) through ``python -m
+   mpi_blockchain_tpu_torch.analysis.sanitizers``: its known answers hold
+   on the card with no tool (both sweeps at dbits 16 and 24, by value and
+   from the ext symbol, the step, the fused call and the queries), and
+   under each of memcheck, racecheck, synccheck and initcheck that can
+   check here: 0 errors, and the poisoned runs (a result buffer one word
+   short under memcheck, one never reset under initcheck) reported. A
+   tool that cannot check on this machine (its own "Device not
+   supported") is said so on a line of its own, and each kernel's entry
+   in the kernels line carries the verdicts.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -504,6 +521,11 @@ PERFWATCH_RECORDS = (("sweep", ("sweep", 8)), ("chain", ("chain",)),
                      ("tpu_single", ("single",)), ("sweep", ("sweep", 1)))
 PERFWATCH_DROP = 0.8
 PERFWATCH_TIMEOUT_S = 240
+# Phase 16: the port's chainlint CLI and the sanitizer matrix, each in a
+# process of its own; the driver's known-answer cases (sanitize_main.cu).
+ANALYSIS_TIMEOUT_S = 600
+SANITIZER_TIMEOUT_S = 900
+SANITIZER_CASES = 24
 # What ``make metrics-smoke`` greps the telemetry CLI's snapshot for.
 METRICS_NEEDLES = (r"^mining_rounds_total", r"^hashes_tried_total", r"_count")
 # Phase 15: the last of the reference's paths. (a) ``mine --fused`` as a
@@ -4113,6 +4135,107 @@ def phase_perfwatch(device, bench: dict | None = None,
     return out
 
 
+def sanitizer_build():
+    """Builds phase 16's sanitizer driver (nvcc), beside the kernels."""
+    from mpi_blockchain_tpu_torch.analysis import sanitizers
+
+    nvcc = sanitizers.find_nvcc()
+    check(nvcc is not None, "no nvcc for the sanitizer driver")
+    return sanitizers.build_driver(pathlib.Path(REPO_ROOT), nvcc)
+
+
+def sanitizer_verdicts(result: dict) -> list[str]:
+    """Phase 16 (b)'s check of one run of the sanitizer matrix
+    (``analysis.sanitizers.run_matrix``): fails unless the driver's known
+    answers held on the card with no tool, and every tool that could
+    check here ran it with no error and no failed case and reported its
+    poisoned run. Returns the lines to print: one a tool, and one for
+    each tool that could not check here."""
+    status = result.get("status")
+    check(status in ("ok", "tool_unusable", "errors"),
+          f"phase 16b sanitizer matrix could not run: {status}, "
+          f"{result.get('reason')}")
+    plain = result["plain"]
+    check(plain["rc"] == 0 and plain["cases_failed"] == 0
+          and plain["cases_passed"] >= SANITIZER_CASES,
+          f"phase 16b sanitizer driver with no tool: rc {plain['rc']}, "
+          f"{plain['cases_passed']} cases ok, {plain['cases_failed']} "
+          f"FAIL: {plain['tail'][-600:]}")
+    lines = []
+    for tool, v in result["clean"].items():
+        if not v["usable"]:
+            lines.append(f"phase 16b compute-sanitizer --tool {tool} cannot "
+                         f"check on this machine: {v['tool_error']} "
+                         f"({result['sanitizer']})")
+            continue
+        poisons = {k: p["errors"] for k, p in result["poisoned"].items()
+                   if k.startswith(tool + ":")}
+        check(v["errors"] == 0 and v["rc"] == 0 and v["cases_failed"] == 0
+              and all(poisons.values()),
+              f"phase 16b {tool}: {v['errors']} error(s) "
+              f"{v['by_kernel']}, rc {v['rc']}, {v['cases_failed']} case(s) "
+              f"FAIL, poisoned runs reported {poisons}: {v['tail'][-600:]}")
+        lines.append(f"phase 16b compute-sanitizer --tool {tool}: 0 errors "
+                     f"over {v['cases_passed']} cases; poisoned runs "
+                     f"reported {poisons or 'none for this tool'}")
+    check(status != "errors", f"phase 16b sanitizer matrix: {result}")
+    return lines
+
+
+def phase_static_analysis() -> dict:
+    """Phase 16: the port's chainlint and the CUDA library's sanitizer
+    matrix on the card, (a) and (b) as the module docstring says. Returns
+    the CLI's timings and the matrix's verdicts."""
+    from mpi_blockchain_tpu_torch.analysis import pass_families
+    from mpi_blockchain_tpu_torch.analysis.sanitizers import kernel_verdicts
+
+    card = nvidia_smi("name,power.limit")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_blockchain_tpu_torch.analysis",
+         "--audit-suppressions", "--json"],
+        capture_output=True, text=True, cwd=REPO_ROOT,
+        timeout=ANALYSIS_TIMEOUT_S, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    lint_wall_s = time.perf_counter() - t0
+    try:
+        payload = json.loads(proc.stdout)
+    except ValueError:
+        payload = {}
+    check(proc.returncode == 0 and payload.get("findings") == []
+          and payload.get("stale_suppressions") == []
+          and set(payload.get("pass_timings_ms", {})) == set(pass_families()),
+          f"phase 16a chainlint: rc {proc.returncode}, "
+          f"{proc.stdout[-2000:]}, {proc.stderr[-4000:]}")
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("note:")]
+    log(f"phase 16a python -m mpi_blockchain_tpu_torch.analysis "
+        f"--audit-suppressions: rc 0, 0 findings, 0 stale suppressions, "
+        f"{len(payload['pass_timings_ms'])} families in {lint_wall_s:.1f} s "
+        f"(ms by family {payload['pass_timings_ms']}); {card}")
+    for note in notes:
+        log(f"phase 16a {note}")
+
+    res = run_module("mpi_blockchain_tpu_torch.analysis.sanitizers", [],
+                     SANITIZER_TIMEOUT_S)
+    result = res["out"]
+    check(bool(result), f"phase 16b sanitizer matrix printed nothing: rc "
+                        f"{res['rc']}, {res['err']}")
+    lines = sanitizer_verdicts(result)
+    plain = result["plain"]
+    log(f"phase 16b sanitizer driver ({result['driver']}) with no tool: "
+        f"{plain['cases_passed']} cases hold their known answers, "
+        f"0 FAIL; matrix status {result['status']} in {res['wall_s']:.1f} s; "
+        f"{card}")
+    for line in lines:
+        log(line)
+    return {"lint_ms": payload["pass_timings_ms"],
+            "lint_wall_s": lint_wall_s, "notes": notes,
+            "status": result["status"], "reason": result["reason"],
+            "sanitizer": result["sanitizer"],
+            "cases": plain["cases_passed"],
+            "kernels": kernel_verdicts(result),
+            "matrix_wall_s": res["wall_s"]}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4142,13 +4265,14 @@ def main() -> int:
         card = nvidia_smi("name,power.limit")
         log(card)
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
             builds = [pool.submit(sha256_cuda.build),
-                      pool.submit(ensure_built)]
+                      pool.submit(ensure_built),
+                      pool.submit(sanitizer_build)]
             for b in builds:
                 b.result()
-        log(f"built the CUDA kernel and the C++ core in "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"built the CUDA kernel, the C++ core and the sanitizer driver "
+            f"in {time.perf_counter() - t0:.1f} s")
         from mpi_blockchain_tpu_torch import dispatchwatch
         startup_nvcc = dispatchwatch.compile_census().get(
             sha256_cuda.COMPILE_SITE, {}).get("compiles", 0)
@@ -4173,6 +4297,7 @@ def main() -> int:
         elastic = phase_elastic(device)
         perfwatch = phase_perfwatch(device, bench, world)
         ported = phase_ported_paths(mesh, fused[(24, 1000)])
+        static = phase_static_analysis()
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -4236,7 +4361,13 @@ def main() -> int:
         "bench": bench, "mesh8": mesh, "resilience": resilience,
         "sim": sim, "serve": serve, "trace": trace,
         "mesh_obs": mesh_obs, "elastic": elastic,
-        "perfwatch": perfwatch, "ported_paths": ported}, {
+        "perfwatch": perfwatch, "ported_paths": ported,
+        "sanitizers": static["kernels"]["sha256d_sweep"],
+        "sanitizers_ext_symbol_copy": static["kernels"]["ext_symbol_copy"],
+        "sanitizer_cases": static["cases"],
+        "static_analysis": {k: static[k] for k in (
+            "lint_ms", "lint_wall_s", "status", "reason", "sanitizer",
+            "matrix_wall_s")}}, {
         "name": "sha256d_block_step", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
         "launches": f24["steps"], "bound_by": "operations",
@@ -4255,7 +4386,8 @@ def main() -> int:
                 ported["profile"]["fused"]["profiled"])],
             "c_graft": ported["graft"]["steps"]},
         "gap_d24_n1000": {key: f24[key] for key in GAP_KEYS},
-        "gap_d16_n30": {key: f16[key] for key in GAP_KEYS}}]}))
+        "gap_d16_n30": {key: f16[key] for key in GAP_KEYS},
+        "sanitizers": static["kernels"]["sha256d_block_step"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

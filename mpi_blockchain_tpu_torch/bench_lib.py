@@ -43,7 +43,8 @@ import time
 
 from . import core
 from .parallel.mesh import NONCE_SPACE
-from .telemetry import counter, emit_event, gauge, heartbeat
+from .telemetry import counter, emit_event, gauge, heartbeat, \
+    rank_counter
 from .telemetry.events import env_number
 from .telemetry.spans import span
 
@@ -118,9 +119,11 @@ def bench_cpu(seconds: float = 3.0, n_miners: int = 1,
         deadline = time.perf_counter() + seconds
         base = rank * (1 << 28)
         hb = heartbeat("bench_heartbeat")
-        rank_c = counter("bench_rank_hashes_total",
-                         help="nonces hashed per bench rank",
-                         rank=rank, backend="cpu")
+        # Per-rank attribution rides the rank-aware helper, as the
+        # reference's does: one `rank` label convention for the mesh view.
+        rank_c = rank_counter("bench_rank_hashes_total",
+                              help="nonces hashed per bench rank",
+                              rank=rank, backend="cpu")
         while time.perf_counter() < deadline:
             _, t = core.cpu_search(_HEADER, base, chunk,
                                    _IMPOSSIBLE_DIFFICULTY)

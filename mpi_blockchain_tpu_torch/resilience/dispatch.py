@@ -96,7 +96,9 @@ def _wait_ready(finish, deadline: float | None) -> None:
             raise concurrent.futures.TimeoutError(
                 "the dispatch's device work did not complete in time")
         if POLL_S is not None:
-            time.sleep(POLL_S)
+            # Off unless a measurement sets it (tools/dispatch_variants.py);
+            # the wait it paces is bounded by the consume's deadline.
+            time.sleep(POLL_S)  # chainlint: disable=HOT001
 
 
 def _query(ready) -> bool:
@@ -244,13 +246,23 @@ class ResilientBackend(MinerBackend):
         dispatch whose sweep is still on the card when it runs out stays
         pending and ``concurrent.futures.TimeoutError`` is raised; the
         read-back, re-validation and retries of a completed sweep are not
-        bounded."""
+        bounded. The wait for the head's work to complete runs outside
+        the lock, so an issue or a search on another thread does not queue
+        behind a sweep on the card; the head is then resolved under the
+        lock, unless another thread finished it meanwhile."""
         deadline = None if timeout is None else time.monotonic() + timeout
-        with self._lock:
-            while not dispatch.done() and self._pending:
+        while True:
+            with self._lock:
+                if dispatch.done() or not self._pending:
+                    return
                 head = self._pending[0]
-                if not head.cancelled() and head.launched[0] == self._i:
-                    _wait_ready(head.launched[1], deadline)
+                in_flight = not head.cancelled() and \
+                    head.launched[0] == self._i
+            if in_flight:
+                _wait_ready(head.launched[1], deadline)
+            with self._lock:
+                if not self._pending or self._pending[0] is not head:
+                    continue
                 self._pending.popleft()
                 if not head.set_running_or_notify_cancel():
                     continue

@@ -213,7 +213,9 @@ def main() -> int:
         call = _Call(_u32(prev, device), _u32(data, device), CHECK_DBITS,
                      device)
         call.enqueue(lib)
-        agrees[name] = call.result() == want
+        # The k-block call's read-back from the card (.cpu() of its
+        # outputs), not a future: nothing on another thread completes it.
+        agrees[name] = call.result() == want  # chainlint: disable=FUT002
 
     # The timed work: steps in a row, and k-block calls at two difficulties.
     prev_t = _u32(rng.integers(0, 1 << 32, 8, dtype=np.uint32), device)

@@ -19,6 +19,13 @@ a warming run, then the same chain on the C++ sweep (``--backend cpu``),
 which has no device and so shows the host's own pace in that turn; it
 prints both walls and the host time a search (wall over searches).
 
+``--workload trace`` mines the same d24/n1000 chain with the telemetry
+on and the sweeps' events around the library's launch call, as phase 11 a
+of ``chip_smoke.py`` does, and prints the pipeline's ``bubble_fraction``
+beside 1 - the sweeps' event sum / wall (the figure phase 11 a holds it
+to) and the span the pipeline's segments cover, without the phase's
+checks, so that a run that would fail them is read and not lost.
+
 ``--workload overhead`` reads the trace-overhead audit instead
 (``blocktrace.overhead.measure_trace_overhead`` on the card, its defaults:
 three repetitions of a second of paired 2^24 sweep rounds, instrumented
@@ -88,6 +95,38 @@ print(json.dumps({
                  for r in (run, cpp)]}))
 """
 
+_TRACE = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke
+from mpi_blockchain_tpu_torch import telemetry
+from mpi_blockchain_tpu_torch.config import MinerConfig
+from mpi_blockchain_tpu_torch.core.build import ensure_built
+from mpi_blockchain_tpu_torch.meshwatch.pipeline import (pipeline_report,
+                                                         profiler,
+                                                         reset_profiler)
+from mpi_blockchain_tpu_torch.models.miner import Miner
+from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+sha256_cuda.build()
+ensure_built()
+Miner(MinerConfig(difficulty_bits=20, n_blocks=10, batch_pow2=20,
+                  backend="cuda", kernel="cuda", device="cuda"),
+      pipeline=True).mine_chain()
+telemetry.reset()
+reset_profiler()
+run = chip_smoke.mine_timed(Miner(MinerConfig(
+    difficulty_bits=24, n_blocks=1000, batch_pow2=24, backend="cuda",
+    kernel="cuda", device="cuda"), pipeline=True), bracket="library",
+    sample_clocks=False)
+pipe = pipeline_report(profiler().records())
+run["host_ms_per_block"] = chip_smoke.host_ms_per_block(run, 1000)
+run["bubble_fraction"] = pipe["bubble_fraction"]
+run["events_bubble"] = 1 - run["kernel_s"] / run["wall_s"]
+run["pipeline_wall_s"] = pipe["ranks"]["0"]["wall_s"]
+print(json.dumps(run))
+"""
+
 _OVERHEAD = """
 import json, sys
 sys.path.insert(0, ".")
@@ -116,6 +155,15 @@ WORKLOADS = {
                 f"host {run['host_ms_per_search']:.6f} ms a search "
                 f"(dispatch {run['dispatch_ms_per_search']:.6f}); C++ "
                 f"sweep wall {run['cpp_wall_s']:.6f} s")),
+    "trace": (_TRACE, ("wall_s", "host_ms_per_block", "bubble_fraction",
+                       "events_bubble"),
+              lambda run: (
+                  f"wall {run['wall_s']:.6f} s, sweeps "
+                  f"{run['kernel_s']:.6f} s, host "
+                  f"{run['host_ms_per_block']:.4f} ms a block, "
+                  f"bubble_fraction {run['bubble_fraction']} against "
+                  f"1 - sweeps / wall {run['events_bubble']:.4f}, "
+                  f"segments span {run['pipeline_wall_s']:.6f} s")),
     "overhead": (_OVERHEAD, ("overhead_pct",),
                  lambda run: (
                      f"overhead {run['overhead_pct']}% (repetitions "

@@ -403,6 +403,27 @@ def test_tree_turns_sim_runs_only_helpers_every_tree_has():
     assert "4346 launches" in line and "0.345000 ms a search" in line
 
 
+def test_tree_turns_trace_runs_only_helpers_every_tree_has():
+    """The trace workload runs phase 11 a's miner with the helpers the
+    trees since the tracing's port have, and reads the pipeline's bubble
+    beside the sweeps' events."""
+    from mpi_blockchain_tpu_torch.meshwatch import pipeline
+    from mpi_blockchain_tpu_torch.tools import tree_turns
+
+    script, keys, describe = tree_turns.WORKLOADS["trace"]
+    for name in ("mine_timed", "host_ms_per_block"):
+        assert f"chip_smoke.{name}(" in script
+        assert callable(getattr(chip_smoke, name))
+    assert callable(pipeline.pipeline_report)
+    compile(script, "tree_turns._TRACE", "exec")
+    assert keys == ("wall_s", "host_ms_per_block", "bubble_fraction",
+                    "events_bubble")
+    line = describe({"wall_s": 2.8, "kernel_s": 2.29,
+                     "host_ms_per_block": 0.51, "bubble_fraction": 0.19,
+                     "events_bubble": 0.1821, "pipeline_wall_s": 2.79})
+    assert "bubble_fraction 0.19 against 1 - sweeps / wall 0.1821" in line
+
+
 def test_tree_turns_overhead_reads_each_trees_audit():
     """The audit workload runs each tree's own overhead audit, whose
     payload the line describes."""
@@ -779,3 +800,37 @@ def test_phase_15_world_rounds_and_block_heights():
                      '{"event": "retry"}',
                      '{"event": "block_mined", "height": 2}'])
     assert chip_smoke.block_heights(err) == [1, 2]
+
+
+def _matrix(status="tool_unusable", usable=False, errors=0, poisoned=1,
+            plain_rc=0, cases=chip_smoke.SANITIZER_CASES):
+    tool_run = {"usable": usable, "errors": errors, "rc": 0,
+                "cases_failed": 0, "cases_passed": cases,
+                "by_kernel": {"sha256d_sweep": errors},
+                "tool_error": None if usable else
+                "Error: Device not supported.", "tail": ""}
+    return {"status": status, "reason": "", "sanitizer": "/cs",
+            "plain": {"rc": plain_rc, "cases_failed": 0,
+                      "cases_passed": cases, "tail": ""},
+            "clean": {t: dict(tool_run) for t in
+                      ("memcheck", "racecheck", "synccheck", "initcheck")},
+            "poisoned": ({"memcheck:short": {"errors": poisoned},
+                          "initcheck:uninit": {"errors": poisoned}}
+                         if usable else {})}
+
+
+def test_phase_16_sanitizer_verdicts():
+    """A tool that cannot check here is said so on a line of its own; a
+    usable one must run clean and catch its poisoned run; the driver's
+    known answers must hold with no tool in every case."""
+    lines = chip_smoke.sanitizer_verdicts(_matrix())
+    assert len(lines) == 4 and all("cannot check on this machine" in ln
+                                   for ln in lines)
+    lines = chip_smoke.sanitizer_verdicts(_matrix("ok", usable=True))
+    assert len(lines) == 4 and all("0 errors" in ln for ln in lines)
+    for bad in (_matrix("errors", usable=True, errors=2),
+                _matrix("errors", usable=True, poisoned=0),
+                _matrix(plain_rc=1), _matrix(cases=3),
+                {"status": "no_tool", "reason": "not found"}):
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.sanitizer_verdicts(bad)

@@ -25,11 +25,13 @@ import torch
 
 from mpi_blockchain_tpu import dispatchwatch as ref_dispatchwatch
 from mpi_blockchain_tpu import telemetry as ref_telemetry
+from mpi_blockchain_tpu.meshwatch import pipeline as ref_pipeline
 from mpi_blockchain_tpu.perfwatch import attribution as ref_attribution
 from mpi_blockchain_tpu.perfwatch import history as ref_history
 from mpi_blockchain_tpu.perfwatch.__main__ import main as ref_main
 from mpi_blockchain_tpu.telemetry.spans import Span as RefSpan
 from mpi_blockchain_tpu_torch import dispatchwatch, telemetry
+from mpi_blockchain_tpu_torch.meshwatch import pipeline as port_pipeline
 from mpi_blockchain_tpu_torch.meshwatch.world import REPO_ROOT, reap
 from mpi_blockchain_tpu_torch.perfwatch import attribution, history
 from mpi_blockchain_tpu_torch.perfwatch.__main__ import main
@@ -61,6 +63,10 @@ def _fresh(monkeypatch):
         pkg.clear_events()
     dispatchwatch.clear_compiles()
     ref_dispatchwatch.clear_compiles()
+    # `report` reads the in-process pipeline records; a test file run
+    # before this one in the same process may have left some in either.
+    port_pipeline.reset_profiler()
+    ref_pipeline.reset_profiler()
     yield
     for pkg in (telemetry, ref_telemetry):
         pkg.reset()

@@ -266,6 +266,18 @@ then:
    tool that cannot check on this machine (its own "Device not
    supported") is said so on a line of its own, and each kernel's entry
    in the kernels line carries the verdicts.
+17. the card-side censuses of the port's budgets, each mover's
+   ``--check`` in a process of its own: (a) ``python -m
+   mpi_blockchain_tpu_torch.analysis.transfer_budget --check``: the
+   memcpy operations the profiler records for one search of the per-block
+   path and for a k-block call of ``FusedMiner`` reproduce the committed
+   ``traced`` section of ``analysis/TRANSFERBUDGET.json``; (b) ``...opbudget
+   --check``: the SASS census of the sweep's main loop reproduces for
+   every difficulty class (the nvcc release the committed one), logged
+   with its ALU-only count beside the source's adds and the bound; (c)
+   ``...shard_budget --check`` as a world of two gloo ranks sharing the
+   card at the d20/n10 pin's round (phase 8's world): each rank's round
+   of both world flavors issues the committed collectives.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -526,6 +538,10 @@ PERFWATCH_TIMEOUT_S = 240
 ANALYSIS_TIMEOUT_S = 600
 SANITIZER_TIMEOUT_S = 900
 SANITIZER_CASES = 24
+# Phase 17: the budget movers' checks, and the shape of 17 c's round (the
+# d20/n10/b20 pin's, as phase 8's world).
+BUDGET_TIMEOUT_S = 300
+BUDGET_WORLD_ROUND = ("--batch-pow2", "20", "--difficulty", "20")
 # What ``make metrics-smoke`` greps the telemetry CLI's snapshot for.
 METRICS_NEEDLES = (r"^mining_rounds_total", r"^hashes_tried_total", r"_count")
 # Phase 15: the last of the reference's paths. (a) ``mine --fused`` as a
@@ -4236,6 +4252,91 @@ def phase_static_analysis() -> dict:
             "matrix_wall_s": res["wall_s"]}
 
 
+def budget_verdict(res: dict, mover: str, what: str) -> str:
+    """Phase 17's check of one run of a budget mover's ``--check``
+    (``run_module``'s result): rc 0 and a last ``{mover}:`` line on stderr
+    saying the budget reproduces. A drifted or unarmed budget fails with
+    the mover's own verdict. Returns that line."""
+    lines = [ln for ln in res["err"].splitlines()
+             if ln.startswith(f"{mover}:")]
+    check(res["rc"] == 0 and bool(lines) and "reproduces" in lines[-1],
+          f"phase {what} {mover} --check: rc {res['rc']}, "
+          f"{lines[-1] if lines else res['err'][-1500:]}")
+    return lines[-1]
+
+
+def budget_world(timeout: float = BUDGET_TIMEOUT_S) -> list[dict]:
+    """Phase 17 (c): ``shard_budget --check`` as two gloo ranks sharing
+    the card at BUDGET_WORLD_ROUND. Returns each rank's ``run_module``-like
+    result (rc, its stderr's tail, wall)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mpi_blockchain_tpu_torch.analysis.shard_budget",
+         "--check", "--device", "cuda", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(rank), *BUDGET_WORLD_ROUND],
+        stdout=subprocess.DEVNULL, stderr=err, text=True, env=env,
+        cwd=REPO_ROOT) for rank, err in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    results = []
+    for p, err in zip(procs, logs):
+        err.seek(0)
+        results.append({"rc": p.returncode, "err": err.read()[-2000:],
+                        "wall_s": wall})
+        err.close()
+    return results
+
+
+def phase_budgets() -> dict:
+    """Phase 17: the budget movers' checks on the card, (a) to (c) as the
+    module docstring says. Returns their walls and the censuses."""
+    card = nvidia_smi("name,power.limit")
+    res = run_module("mpi_blockchain_tpu_torch.analysis.transfer_budget",
+                     ["--check"], BUDGET_TIMEOUT_S)
+    log(f"phase 17a {budget_verdict(res, 'transfer_budget', '17a')} in "
+        f"{res['wall_s']:.1f} s; {card}")
+    transfers = res["out"]
+    out = {"transfer_wall_s": res["wall_s"], "transfers": transfers}
+
+    res = run_module("mpi_blockchain_tpu_torch.analysis.opbudget",
+                     ["--check"], BUDGET_TIMEOUT_S)
+    log(f"phase 17b {budget_verdict(res, 'opbudget', '17b')} in "
+        f"{res['wall_s']:.1f} s; {card}")
+    for cls, row in sorted(res["out"]["classes"].items()):
+        log(f"phase 17b class {cls} (d{row['difficulty_bits']}): loop "
+            f"{row['loop_instructions']} instructions, ALU-only "
+            f"{row['alu_only']}, source adds {row['source_adds']}, bound "
+            f"{row['bound_sm_clocks_per_nonce']:.4f} SM clocks a nonce; "
+            f"nvcc {res['out']['nvcc_release']}; {card}")
+    out.update(op_wall_s=res["wall_s"], ops=res["out"])
+
+    ranks = budget_world()
+    for rank, res in enumerate(ranks):
+        line = budget_verdict(res, "shard_budget", f"17c rank {rank}")
+        log(f"phase 17c rank {rank}: {line}; world wall "
+            f"{res['wall_s']:.1f} s; {card}")
+    out["world_wall_s"] = ranks[0]["wall_s"]
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4298,6 +4399,7 @@ def main() -> int:
         perfwatch = phase_perfwatch(device, bench, world)
         ported = phase_ported_paths(mesh, fused[(24, 1000)])
         static = phase_static_analysis()
+        phase_budgets()
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -36,6 +36,20 @@ The families:
   (HOT001-002).
 * ``sync`` — implicit host-device syncs of device-origin tensors on the
   same hot path, read for PyTorch (SYNC001-003).
+* ``spmd`` — collective consistency over the worlds of processes, read
+  for ``torch.distributed``: no collective under a rank test, none a
+  swallowing ``try`` can skip, and every rendezvous of the elastic file
+  through ``guarded_collective`` (SPMD001, SPMD003-004).
+* ``opbudget`` — the op-budget ratchet: the static ALU census of the
+  sweep's per-nonce path in the CUDA source must not exceed
+  ``analysis/OPBUDGET.json`` (OPB001-003; its traced section is the SASS
+  loop census, taken on the card).
+* ``trb`` — the transfer ratchet: host-device transfer and sync sites of
+  the sweep path against ``analysis/TRANSFERBUDGET.json`` (TRB001-003;
+  its traced section is the card's memcpy census).
+* ``sbd`` — the collective-site ratchet: collective call sites of the
+  world scope against ``analysis/SHARDBUDGET.json`` (SBD001-003; its
+  traced section is the collectives one round issues).
 
 CLI: ``python -m mpi_blockchain_tpu_torch.analysis`` — exits non-zero on
 any finding. This module imports only the standard library: no torch, no
@@ -210,11 +224,15 @@ def pass_families() -> dict[str, Callable[..., list[Finding]]]:
     from .header_layout import run_header_layout
     from .hotpath_lint import run_hotpath_lint
     from .lock_lint import run_lock_lint
+    from .opbudget import run_opbudget
     from .resilience_lint import run_resilience_lint
     from .sanitizers import run_sanitizers
+    from .shard_budget import run_shard_budget
+    from .spmd_lint import run_spmd_lint
     from .sync_lint import run_sync_lint
     from .telemetry_lint import run_telemetry_lint
     from .thread_lint import run_thread_lint
+    from .transfer_budget import run_transfer_budget
     return {
         "binding": run_binding_contract,
         "header": run_header_layout,
@@ -227,6 +245,10 @@ def pass_families() -> dict[str, Callable[..., list[Finding]]]:
         "lock": run_lock_lint,
         "future": run_future_lint,
         "thread": run_thread_lint,
+        "spmd": run_spmd_lint,
+        "opbudget": run_opbudget,
+        "trb": run_transfer_budget,
+        "sbd": run_shard_budget,
     }
 
 
@@ -252,13 +274,29 @@ FAMILY_SCOPES: dict[str, tuple[str, ...]] = {
     "lock": (_PKG,),
     "future": (_PKG,),
     "thread": (_PKG,),
+    "spmd": (f"{_PKG}/parallel", f"{_PKG}/tools", f"{_PKG}/models/fused.py",
+             f"{_PKG}/models/miner.py", f"{_PKG}/backend/cuda.py",
+             f"{_PKG}/cli.py", f"{_PKG}/resilience/elastic.py"),
+    "opbudget": (f"{_PKG}/ops/csrc/sha256d_sweep.cu",
+                 f"{_PKG}/ops/sha256_sched.py",
+                 f"{_PKG}/analysis/OPBUDGET.json"),
+    "trb": (f"{_PKG}/models/miner.py", f"{_PKG}/models/fused.py",
+            f"{_PKG}/backend/cuda.py", f"{_PKG}/backend/cpu.py",
+            f"{_PKG}/parallel/mesh.py", f"{_PKG}/resilience/dispatch.py",
+            f"{_PKG}/ops/sha256_cuda.py", f"{_PKG}/ops/sha256_block.py",
+            f"{_PKG}/analysis/TRANSFERBUDGET.json"),
+    "sbd": (f"{_PKG}/parallel/mesh.py", f"{_PKG}/parallel/distributed.py",
+            f"{_PKG}/backend/cuda.py", f"{_PKG}/models/fused.py",
+            f"{_PKG}/models/miner.py", f"{_PKG}/analysis/SHARDBUDGET.json"),
 }
 
 #: Rule-id prefix -> owning family (suppression audit attribution).
 RULE_FAMILIES = {"BIND": "binding", "HDR": "header", "SAN": "sanitizers",
                  "TEL": "telemetry", "RES": "resilience", "CONC": "conc",
                  "HOT": "hotpath", "SYNC": "sync", "LCK": "lock",
-                 "FUT": "future", "THR": "thread", "TBW": "thread"}
+                 "FUT": "future", "THR": "thread", "TBW": "thread",
+                 "SPMD": "spmd", "OPB": "opbudget", "TRB": "trb",
+                 "SBD": "sbd"}
 
 
 #: A change under the analysis engine itself can alter ANY family's

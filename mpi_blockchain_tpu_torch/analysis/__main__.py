@@ -15,6 +15,11 @@ where the port has the family behind them:
   into the port's ``analysis/WAITBUDGET.json``; refuses to raise it (the
   ratchet). A justified raise goes through the mover, ``python -m
   mpi_blockchain_tpu_torch.analysis.thread_lint --write``.
+* ``--rebaseline``, ``--rebaseline-transfers``, ``--rebaseline-shards`` —
+  the same for the op, transfer and collective-site budgets
+  (``analysis/OPBUDGET.json``, ``TRANSFERBUDGET.json``,
+  ``SHARDBUDGET.json``); their movers are the ``opbudget``,
+  ``transfer_budget`` and ``shard_budget`` modules' ``--write``.
 * ``--jobs N`` — run pass families on a thread pool; per-pass wall times
   are always collected and emitted under ``pass_timings_ms`` in
   ``--json`` output (a JSON object: ``{"findings": [...],
@@ -23,6 +28,7 @@ where the port has the family behind them:
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import pathlib
 import subprocess
@@ -42,7 +48,10 @@ OVERRIDE_KEYS = ("capi", "ctypes_binding", "cuda_src", "cuda_binding",
                  "lock_files", "future_files", "thread_files",
                  "wait_files", "waitbudget_json",
                  "skew_scope_files", "incident_scope_files",
-                 "compile_scope_files")
+                 "compile_scope_files", "spmd_files", "elastic_files",
+                 "opbudget_json", "kernel_src", "host_src",
+                 "transferbudget_json", "transfer_files",
+                 "shardbudget_json", "shard_files")
 
 
 def _changed_files(root: pathlib.Path, rev: str) -> list[str] | None:
@@ -77,7 +86,9 @@ def main(argv: list[str] | None = None) -> int:
                     "telemetry discipline, swallow-proof fault handling, "
                     "thread races, hot-path blocking, device-sync "
                     "provenance, lock order, future and thread "
-                    "lifecycles, and the port's wait-budget ratchet")
+                    "lifecycles, collective consistency over the worlds, "
+                    "and the port's wait, op, transfer and "
+                    "collective-site budget ratchets")
     parser.add_argument("--root", type=pathlib.Path, default=None,
                         help="repo root (default: auto-detected)")
     parser.add_argument("--passes", default=None,
@@ -101,10 +112,22 @@ def main(argv: list[str] | None = None) -> int:
                         help="also report stale 'chainlint: disable=' "
                              "comments from the same run (warning-only: "
                              "never affects the exit code)")
+    parser.add_argument("--rebaseline", action="store_true",
+                        help="write the current static ALU census into "
+                             "the port's analysis/OPBUDGET.json (refuses "
+                             "to raise it)")
+    parser.add_argument("--rebaseline-transfers", action="store_true",
+                        help="write the current static transfer-site "
+                             "census into the port's analysis/"
+                             "TRANSFERBUDGET.json (refuses to raise it)")
     parser.add_argument("--rebaseline-waits", action="store_true",
                         help="write the current static blocking-wait "
                              "census into the port's analysis/"
                              "WAITBUDGET.json (refuses to raise it)")
+    parser.add_argument("--rebaseline-shards", action="store_true",
+                        help="write the current static collective-site "
+                             "census into the port's analysis/"
+                             "SHARDBUDGET.json (refuses to raise it)")
     parser.add_argument("-q", "--quiet", action="store_true",
                         help="suppress the summary/notes lines")
     args = parser.parse_args(argv)
@@ -119,15 +142,24 @@ def main(argv: list[str] | None = None) -> int:
 
     root = args.root if args.root is not None else default_root()
 
-    if args.rebaseline_waits:
-        from .thread_lint import rebaseline_waits
+    for flag, module, name, what in (
+            ("rebaseline", "opbudget", "rebaseline", "op"),
+            ("rebaseline_transfers", "transfer_budget",
+             "rebaseline_transfers", "transfer"),
+            ("rebaseline_waits", "thread_lint", "rebaseline_waits", "wait"),
+            ("rebaseline_shards", "shard_budget", "rebaseline_shards",
+             "collective")):
+        if not getattr(args, flag):
+            continue
+        move = getattr(importlib.import_module(f".{module}", __package__),
+                       name)
         try:
-            old, new, path = rebaseline_waits(root, overrides)
-        except (ValueError, OSError) as e:
-            print(f"chainlint: rebaseline-waits refused: {e}",
+            old, new, path = move(root, overrides)
+        except (ValueError, OSError, SyntaxError) as e:
+            print(f"chainlint: {flag.replace('_', '-')} refused: {e}",
                   file=sys.stderr)
             return 2
-        print(f"chainlint: wait budget rebaselined {old} -> {new} "
+        print(f"chainlint: {what} budget rebaselined {old} -> {new} "
               f"({path})", file=sys.stderr)
         return 0
 

@@ -2,7 +2,7 @@
 GPU: what a change to the per-block path, or to the launch, costs.
 
     python -m mpi_blockchain_tpu_torch.tools.tree_turns PARENT_DIR CHANGE_DIR \\
-        [--rounds 2] [--workload miner|sim|overhead]
+        [--rounds 2] [--workload miner|sim|trace|overhead|step]
 
 Each round runs the two trees in the order A, B, B, A (A the first tree),
 each run in a process of its own started in that tree's directory, so
@@ -30,6 +30,14 @@ checks, so that a run that would fail them is read and not lost.
 (``blocktrace.overhead.measure_trace_overhead`` on the card, its defaults:
 three repetitions of a second of paired 2^24 sweep rounds, instrumented
 against ``MPIBT_TELEMETRY_OFF``) and prints its ``overhead_pct``.
+
+``--workload step`` times the fused miner's step kernel as phase 5 of
+``chip_smoke.py`` does (``chip_smoke.phase_step``: 1000 launches back to
+back in one call, then the measuring build's ``clock64`` stamps of each
+launch's body, in SM clocks, which a lower SM clock does not change),
+then mines d24/n1000 through ``FusedMiner`` at 100 blocks a call after a
+warm-up, and prints the step's µs a launch, the body's median clocks and
+the chain's wall.
 
 Both trees must end at the same tip (the audit mines none). The last line is one JSON object with
 every run, the medians per tree, and the card's name and power limit. The
@@ -140,6 +148,36 @@ run["tip_hash"] = None
 print(json.dumps(run))
 """
 
+_STEP = """
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke
+from mpi_blockchain_tpu_torch.config import MinerConfig
+from mpi_blockchain_tpu_torch.core.build import ensure_built
+from mpi_blockchain_tpu_torch.models.fused import FusedMiner
+from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+sha256_cuda.build()
+ensure_built()
+device = torch.device("cuda", 0)
+clock_mhz = float(chip_smoke.nvidia_smi("clocks.max.sm", units=False))
+step = chip_smoke.phase_step(np.random.default_rng(20261016), device,
+                             clock_mhz)
+fm = FusedMiner(MinerConfig(difficulty_bits=24, n_blocks=1000,
+                            batch_pow2=24, backend="cuda", kernel="cuda",
+                            device="cuda"), blocks_per_call=100)
+fm.warmup()
+t0 = time.perf_counter()
+fm.mine_chain()
+wall = time.perf_counter() - t0
+print(json.dumps({
+    "step_us": step["device_us"],
+    "body_clocks": step["body_clocks"]["median"],
+    "fused_wall_s": wall, "tip_hash": fm.node.tip_hash.hex()}))
+"""
+
 #: Per workload: the script run in each tree, the keys whose medians are
 #: printed, and the line printed for each run.
 WORKLOADS = {
@@ -164,6 +202,11 @@ WORKLOADS = {
                   f"bubble_fraction {run['bubble_fraction']} against "
                   f"1 - sweeps / wall {run['events_bubble']:.4f}, "
                   f"segments span {run['pipeline_wall_s']:.6f} s")),
+    "step": (_STEP, ("step_us", "body_clocks", "fused_wall_s"),
+             lambda run: (
+                 f"step {run['step_us']:.4f} us a launch, body "
+                 f"{run['body_clocks']} SM clocks; fused d24/n1000 wall "
+                 f"{run['fused_wall_s']:.6f} s")),
     "overhead": (_OVERHEAD, ("overhead_pct",),
                  lambda run: (
                      f"overhead {run['overhead_pct']}% (repetitions "

@@ -824,7 +824,7 @@ def test_port_cli_json_jobs_and_since():
     assert analysis.families_for_changed(
         ["mpi_blockchain_tpu_torch/resilience/dispatch.py"]) == [
         "telemetry", "resilience", "conc", "hotpath", "sync", "lock",
-        "future", "thread"]
+        "future", "thread", "trb"]
     assert analysis.families_for_changed(
         ["mpi_blockchain_tpu_torch/analysis/cparse.py"]) == \
         list(analysis.FAMILY_SCOPES)

@@ -403,6 +403,27 @@ def test_tree_turns_sim_runs_only_helpers_every_tree_has():
     assert "4346 launches" in line and "0.345000 ms a search" in line
 
 
+def test_tree_turns_step_runs_only_helpers_every_tree_has():
+    """The step workload runs phase 5's step timing and the nvidia-smi
+    reader, which the trees since the step's redesign have too, and
+    reports the body in SM clocks beside the fused chain's wall."""
+    import inspect
+
+    from mpi_blockchain_tpu_torch.tools import tree_turns
+
+    script, keys, describe = tree_turns.WORKLOADS["step"]
+    for name in ("phase_step", "nvidia_smi"):
+        assert f"chip_smoke.{name}(" in script
+        assert callable(getattr(chip_smoke, name))
+    assert list(inspect.signature(chip_smoke.phase_step).parameters) == \
+        ["rng", "device", "clock_mhz"]
+    compile(script, "tree_turns._STEP", "exec")
+    assert keys == ("step_us", "body_clocks", "fused_wall_s")
+    line = describe({"step_us": 6.5073, "body_clocks": 9331,
+                     "fused_wall_s": 2.266})
+    assert "body 9331 SM clocks" in line and "2.266000 s" in line
+
+
 def test_tree_turns_trace_runs_only_helpers_every_tree_has():
     """The trace workload runs phase 11 a's miner with the helpers the
     trees since the tracing's port have, and reads the pipeline's bubble
@@ -834,3 +855,63 @@ def test_phase_16_sanitizer_verdicts():
                 {"status": "no_tool", "reason": "not found"}):
         with pytest.raises(chip_smoke.SmokeFailure):
             chip_smoke.sanitizer_verdicts(bad)
+
+
+def test_phase_17_budget_verdict_reads_the_movers_check(tmp_path):
+    """Phase 17 holds each mover's ``--check`` to rc 0 and its
+    ``reproduces`` line: a real check of the collective budget on the CPU
+    passes, and the same check against a drifted budget fails the phase
+    with the mover's own verdict."""
+    module = "mpi_blockchain_tpu_torch.analysis.shard_budget"
+    res = chip_smoke.run_module(module, ["--check", "--device", "cpu"], 240)
+    line = chip_smoke.budget_verdict(res, "shard_budget", "17c")
+    assert "reproduces" in line and "[2, 2] collectives" in line
+    budget = json.loads((chip_smoke.pathlib.Path(chip_smoke.REPO_ROOT)
+                         / "mpi_blockchain_tpu_torch/analysis/"
+                           "SHARDBUDGET.json").read_text())
+    budget["traced"]["cuda_world"]["sequence"][1]["reduce_op"] = "MAX"
+    drifted = tmp_path / "SHARDBUDGET.json"
+    drifted.write_text(json.dumps(budget, indent=1, sort_keys=True) + "\n")
+    res = chip_smoke.run_module(module, ["--check", "--device", "cpu",
+                                         "--baseline", str(drifted)], 240)
+    with pytest.raises(chip_smoke.SmokeFailure, match="is stale"):
+        chip_smoke.budget_verdict(res, "shard_budget", "17c")
+
+
+def test_phase_17_fails_on_any_drifted_or_unarmed_census(monkeypatch):
+    ok = {"transfer_budget": {"rc": 0, "wall_s": 1.0, "out": {"t": 1},
+                              "err": "warning\ntransfer_budget: "
+                                     "TRANSFERBUDGET.json reproduces (...)"},
+          "opbudget": {"rc": 0, "wall_s": 1.0, "out": {
+              "nvcc_release": "12.9, V12.9.86", "classes": {"1": {
+                  "difficulty_bits": 24, "loop_instructions": 3122,
+                  "alu_only": 1897, "source_adds": 1081,
+                  "bound_sm_clocks_per_nonce": 29.640625}}},
+              "err": "opbudget: OPBUDGET.json reproduces (...)"}}
+    world = [{"rc": 0, "wall_s": 2.0,
+              "err": "shard_budget: SHARDBUDGET.json reproduces (...)"}] * 2
+    results = dict(ok)
+    monkeypatch.setattr(chip_smoke, "nvidia_smi", lambda q: "card, 700 W")
+    monkeypatch.setattr(chip_smoke, "run_module",
+                        lambda m, a, t: results[m.rsplit(".", 1)[1]])
+    monkeypatch.setattr(chip_smoke, "budget_world", lambda: world)
+    out = chip_smoke.phase_budgets()
+    assert out["transfers"] == {"t": 1} and out["world_wall_s"] == 2.0
+    bad = [("transfer_budget", {"rc": 1, "wall_s": 1.0, "out": {},
+                                "err": "transfer_budget: the traced memcpy "
+                                       "census drifted: ..."}),
+           ("opbudget", {"rc": 1, "wall_s": 1.0, "out": {},
+                         "err": "opbudget: the library was built by nvcc "
+                                "release 13.0, the committed census by "
+                                "12.9"}),
+           ("opbudget", {"rc": 2, "wall_s": 1.0, "out": {},
+                         "err": "opbudget: not armed: ..."})]
+    for mover, res in bad:
+        results = dict(ok, **{mover: res})
+        with pytest.raises(chip_smoke.SmokeFailure, match=mover):
+            chip_smoke.phase_budgets()
+    results = dict(ok)
+    world = [world[0], {"rc": 1, "wall_s": 2.0, "err": "shard_budget: "
+                        "RATCHET INCREASE: traced collective census"}]
+    with pytest.raises(chip_smoke.SmokeFailure, match="17c rank 1"):
+        chip_smoke.phase_budgets()

@@ -85,3 +85,47 @@ def test_mine_profile_mines_the_unprofiled_chain(form, tmp_path, capsys):
         assert len(spans["miner.append"]) == 3
     else:
         assert len(spans["miner.block"]) == 3
+
+
+def test_padded_window_drains_and_waits_on_both_sides(monkeypatch):
+    from mpi_blockchain_tpu_torch.utils import profiling
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: calls.append("sync"))
+    monkeypatch.setattr(profiling.time, "sleep",
+                        lambda s: calls.append(("sleep", s)))
+    with profiling.padded_window():
+        calls.append("body")
+    pad = ("sleep", profiling.WINDOW_PAD_S)
+    assert calls == ["sync", pad, "body", "sync", pad]
+
+
+def test_profile_window_reads_lost_kernels_and_gaps(tmp_path):
+    from mpi_blockchain_tpu_torch.tools.profile_window import trace_window
+
+    def launch(corr, ts):
+        return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
+                "args": {"correlation": corr}}
+
+    def kernel(corr, ts):
+        return {"cat": "kernel", "name": "add", "ts": ts,
+                "args": {"correlation": corr}}
+
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "Trace", "name": "PyTorch Profiler (0)", "ts": 1000.0},
+        launch(1, 1800.0), launch(2, 1810.0), launch(3, 1820.0),
+        kernel(1, 1790.5), kernel(3, 1830.0),
+        {"cat": "cuda_runtime", "name": "cudaDeviceSynchronize",
+         "ts": 1900.0, "args": {"correlation": 4}}]}))
+    assert trace_window(str(path)) == {"launches": 3, "lost": 1,
+                                       "first_launch_us": 800.0,
+                                       "min_gap_us": -9.5}
+
+
+def test_profile_window_refuses_without_a_card(capsys):
+    from mpi_blockchain_tpu_torch.tools.profile_window import main as tool
+
+    assert not torch.cuda.is_available()
+    assert tool(["--reps", "1", "--hogs", "0"]) == 2
+    assert "there is none here" in capsys.readouterr().err

@@ -250,3 +250,9 @@ core:
 
 clean:
 	$(MAKE) -C mpi_blockchain_tpu/core clean
+
+# The port's gate (mpi_blockchain_tpu_torch/gate.py): the counterpart of
+# `check` above, one step per prerequisite, on the card unless DEVICE=cpu.
+DEVICE ?= cuda
+.PHONY: check-torch
+check-torch: ; $(PY) -m mpi_blockchain_tpu_torch.gate --device $(DEVICE)

@@ -278,6 +278,13 @@ then:
    ``...shard_budget --check`` as a world of two gloo ranks sharing the
    card at the d20/n10 pin's round (phase 8's world): each rank's round
    of both world flavors issues the committed collectives.
+18. the port's one-command gate on the card, ``python -m
+   mpi_blockchain_tpu_torch.gate --device cuda --resolve``: every step of
+   the plan (``gate.STEPS``; the counterpart of the reference's ``make
+   check``) resolves, each command's arguments parsed by its module's own
+   parser and nothing run; the plan is printed with the card's name and
+   power limit. The whole gate (``make check-torch``) re-runs smokes that
+   phases 6, 10, 12, 13, 14 and 17 run already, so it is not run here.
 
 Every ``mine`` of phases 3, 6 and 8 and every ``sim`` of phase 9 goes
 through the wrapper; the smoke fails on any retry or step-down that its
@@ -542,6 +549,8 @@ SANITIZER_CASES = 24
 # d20/n10/b20 pin's, as phase 8's world).
 BUDGET_TIMEOUT_S = 300
 BUDGET_WORLD_ROUND = ("--batch-pow2", "20", "--difficulty", "20")
+# Phase 18: the gate's parse-only run over its whole plan on the card.
+GATE_TIMEOUT_S = 300
 # What ``make metrics-smoke`` greps the telemetry CLI's snapshot for.
 METRICS_NEEDLES = (r"^mining_rounds_total", r"^hashes_tried_total", r"_count")
 # Phase 15: the last of the reference's paths. (a) ``mine --fused`` as a
@@ -4337,6 +4346,39 @@ def phase_budgets() -> dict:
     return out
 
 
+def gate_verdict(res: dict) -> list[str]:
+    """Phase 18's check of ``gate --device cuda --resolve`` (``run_module``'s
+    result): rc 0, the card named, and one ``resolves`` line for every step
+    of ``gate.STEPS``, in its order. Returns the gate's lines."""
+    from mpi_blockchain_tpu_torch.gate import STEPS
+
+    lines = [ln for ln in res["stdout"].splitlines()
+             if ln.startswith("gate: ")]
+    steps = [ln.split(":")[1].strip() for ln in lines[1:-1]]
+    check(res["rc"] == 0 and bool(lines)
+          and lines[0].startswith("gate: device cuda: ")
+          and steps == [s.name for s in STEPS]
+          and all(": resolves: " in ln for ln in lines[1:-1])
+          and lines[-1].startswith(f"gate: resolved {len(STEPS)} step(s)"),
+          f"phase 18 gate --resolve: rc {res['rc']}, "
+          f"{res['stdout'][-3000:]} {res['err']}")
+    return lines
+
+
+def phase_gate() -> dict:
+    """Phase 18: the port's gate parses its whole plan on the card, as the
+    module docstring says. Returns its wall and step count."""
+    card = nvidia_smi("name,power.limit")
+    res = run_module("mpi_blockchain_tpu_torch.gate",
+                     ["--device", "cuda", "--resolve"], GATE_TIMEOUT_S)
+    lines = gate_verdict(res)
+    for line in lines:
+        log(f"phase 18 {line}")
+    log(f"phase 18 gate --device cuda --resolve: rc 0, {len(lines) - 2} "
+        f"steps resolve in {res['wall_s']:.1f} s; {card}")
+    return {"wall_s": res["wall_s"], "steps": len(lines) - 2}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4400,6 +4442,7 @@ def main() -> int:
         ported = phase_ported_paths(mesh, fused[(24, 1000)])
         static = phase_static_analysis()
         phase_budgets()
+        phase_gate()
     except (SmokeFailure, subprocess.CalledProcessError, RuntimeError,
             ValueError, AssertionError) as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -40,6 +40,10 @@ The families:
   for ``torch.distributed``: no collective under a rank test, none a
   swallowing ``try`` can skip, and every rendezvous of the elastic file
   through ``guarded_collective`` (SPMD001, SPMD003-004).
+* ``shard`` — rank-divergent values into the size of a tensor or the
+  round count of a loop that enters a collective, read for
+  ``torch.distributed`` (SHD003; the reference's SHD001, SHD002 and SHD004
+  read ``shard_map``, which the port does not have).
 * ``opbudget`` — the op-budget ratchet: the static ALU census of the
   sweep's per-nonce path in the CUDA source must not exceed
   ``analysis/OPBUDGET.json`` (OPB001-003; its traced section is the SASS
@@ -228,6 +232,7 @@ def pass_families() -> dict[str, Callable[..., list[Finding]]]:
     from .resilience_lint import run_resilience_lint
     from .sanitizers import run_sanitizers
     from .shard_budget import run_shard_budget
+    from .shard_lint import run_shard_lint
     from .spmd_lint import run_spmd_lint
     from .sync_lint import run_sync_lint
     from .telemetry_lint import run_telemetry_lint
@@ -246,6 +251,7 @@ def pass_families() -> dict[str, Callable[..., list[Finding]]]:
         "future": run_future_lint,
         "thread": run_thread_lint,
         "spmd": run_spmd_lint,
+        "shard": run_shard_lint,
         "opbudget": run_opbudget,
         "trb": run_transfer_budget,
         "sbd": run_shard_budget,
@@ -253,6 +259,11 @@ def pass_families() -> dict[str, Callable[..., list[Finding]]]:
 
 
 _PKG = REPO_PACKAGE
+
+#: The code that drives a world's collectives (the spmd and shard scopes).
+_WORLD_SCOPE = (f"{_PKG}/parallel", f"{_PKG}/tools", f"{_PKG}/models/fused.py",
+                f"{_PKG}/models/miner.py", f"{_PKG}/backend/cuda.py",
+                f"{_PKG}/cli.py", f"{_PKG}/resilience/elastic.py")
 
 #: Repo-relative path prefixes each family draws findings from — the
 #: ``--since REV`` changed-files mode skips families whose scope holds no
@@ -274,9 +285,8 @@ FAMILY_SCOPES: dict[str, tuple[str, ...]] = {
     "lock": (_PKG,),
     "future": (_PKG,),
     "thread": (_PKG,),
-    "spmd": (f"{_PKG}/parallel", f"{_PKG}/tools", f"{_PKG}/models/fused.py",
-             f"{_PKG}/models/miner.py", f"{_PKG}/backend/cuda.py",
-             f"{_PKG}/cli.py", f"{_PKG}/resilience/elastic.py"),
+    "spmd": _WORLD_SCOPE,
+    "shard": _WORLD_SCOPE,
     "opbudget": (f"{_PKG}/ops/csrc/sha256d_sweep.cu",
                  f"{_PKG}/ops/sha256_sched.py",
                  f"{_PKG}/analysis/OPBUDGET.json"),
@@ -295,8 +305,8 @@ RULE_FAMILIES = {"BIND": "binding", "HDR": "header", "SAN": "sanitizers",
                  "TEL": "telemetry", "RES": "resilience", "CONC": "conc",
                  "HOT": "hotpath", "SYNC": "sync", "LCK": "lock",
                  "FUT": "future", "THR": "thread", "TBW": "thread",
-                 "SPMD": "spmd", "OPB": "opbudget", "TRB": "trb",
-                 "SBD": "sbd"}
+                 "SPMD": "spmd", "SHD": "shard", "OPB": "opbudget",
+                 "TRB": "trb", "SBD": "sbd"}
 
 
 #: A change under the analysis engine itself can alter ANY family's

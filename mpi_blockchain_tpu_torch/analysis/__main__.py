@@ -87,6 +87,7 @@ def main(argv: list[str] | None = None) -> int:
                     "thread races, hot-path blocking, device-sync "
                     "provenance, lock order, future and thread "
                     "lifecycles, collective consistency over the worlds, "
+                    "rank-divergent sizes and round counts, "
                     "and the port's wait, op, transfer and "
                     "collective-site budget ratchets")
     parser.add_argument("--root", type=pathlib.Path, default=None,

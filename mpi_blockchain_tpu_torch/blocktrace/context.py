@@ -41,6 +41,9 @@ class BlockTrace(NamedTuple):
                 "rank": self.rank}
 
 
+_new_frame = tuple.__new__
+
+
 def _stack() -> list:
     stack = getattr(_tls, "stack", None)
     if stack is None:
@@ -85,22 +88,25 @@ class trace_block:
     def __enter__(self) -> BlockTrace | None:
         if _registry._telemetry_off:
             return None
-        stack = _stack()
+        stack = getattr(_tls, "stack", None)
+        if stack is None:
+            stack = _tls.stack = []
         template = self.template
         if template is None:
             parent = stack[-1] if stack else None
             template = (parent.template
                         if parent is not None and parent.height == self.height
                         else 0)
-        frame = self._frame = BlockTrace(
+        rank = self.rank
+        # The named tuple's own ``__new__`` without its Python frame.
+        frame = self._frame = _new_frame(BlockTrace, (
             int(self.height), int(template),
-            int(self.rank if self.rank is not None
-                else telemetry._mesh_rank))
+            int(rank if rank is not None else telemetry._mesh_rank)))
         stack.append(frame)
         return frame
 
     def __exit__(self, *exc) -> bool:
         if self._frame is not None:
-            _stack().pop()
+            _tls.stack.pop()
             self._frame = None
         return False

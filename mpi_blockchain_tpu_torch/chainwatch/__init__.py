@@ -26,6 +26,7 @@ import threading
 import time
 
 from ..telemetry.events import env_number
+from ..telemetry import registry as _registry
 from ..telemetry.registry import telemetry_disabled
 from .incident import (BUNDLE_KEYS, build_bundle, bundle_dir,
                        close_incident, emit_incident, incident_count,
@@ -97,7 +98,7 @@ def evaluate(height: int | None = None, source: str = "",
     the flush cadence — bypasses it). Returns the incidents fired by
     this step, empty almost always."""
     global _last_sweep
-    if not _armed or telemetry_disabled():
+    if not _armed or _registry._telemetry_off:
         return []
     now = time.monotonic()
     if not force and now - _last_sweep < _interval:

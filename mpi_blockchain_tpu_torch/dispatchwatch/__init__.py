@@ -31,6 +31,7 @@ from __future__ import annotations
 import threading
 from collections import deque
 
+from ..telemetry import registry as _registry
 from ..telemetry.registry import telemetry_disabled
 
 #: Stages that created a program: they advance the census and the
@@ -105,7 +106,7 @@ class compile_scope:
 
     def __init__(self, *, site: str):
         self.site = str(site)
-        self._armed = not telemetry_disabled()
+        self._armed = not _registry._telemetry_off
 
     def __enter__(self):
         if not self._armed:

@@ -22,6 +22,7 @@ bundles carry it). Standard library only; records nothing under
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -47,7 +48,7 @@ def wall_now() -> float:
 
 _lock = threading.Lock()
 _ring: deque = deque(maxlen=SKEW_RING_SIZE)
-_rounds: dict[str, int] = {}
+_rounds: dict[str, itertools.count] = {}
 
 
 class skew_span:
@@ -68,10 +69,13 @@ class skew_span:
             return self
         # Round index assigned at ENTER: two ranks inside the same
         # rendezvous agree on the round even if their exits interleave.
-        with _lock:
-            n = _rounds.get(self.site, 0)
-            _rounds[self.site] = n + 1
-        self._round = n
+        # ``next`` on the site's ``itertools.count`` is one step under the
+        # interpreter lock: no two spans of a site take the same round.
+        rounds = _rounds.get(self.site)
+        if rounds is None:
+            with _lock:
+                rounds = _rounds.setdefault(self.site, itertools.count())
+        self._round = next(rounds)
         self._t0 = _ANCHOR + time.perf_counter()
         return self
 

@@ -54,24 +54,18 @@ STAGES = ("enqueue", "device", "collective", "validate", "append",
 NON_HOST_STAGES = ("device", "collective")
 
 RING_SIZE = 4096
+_new = object.__new__
 #: The producer named in ``to_chrome_trace``'s metadata.
 SOURCE = "mpi_blockchain_tpu_torch.meshwatch"
 
 
 class DispatchRecord:
-    """One dispatch's timed segments. Thread-compatible: the miner loop
-    mutates a record from one thread at a time."""
+    """One dispatch's timed segments, opened by
+    ``PipelineProfiler.dispatch``. Thread-compatible: the miner loop
+    mutates a record from one thread at a time. ``_last_end`` is the
+    latest segment end so far (a chained segment opens there)."""
 
     __slots__ = ("_profiler", "_anchor", "_last_end", "record")
-
-    def __init__(self, profiler: "PipelineProfiler", dispatch_id: int,
-                 rank: int, meta: dict):
-        self._profiler = profiler
-        self._anchor = profiler._anchor
-        # The latest segment end so far (a chained segment opens there).
-        self._last_end = None
-        self.record = {"dispatch": dispatch_id, "rank": rank,
-                       "meta": meta, "segments": []}
 
     def add_segment(self, stage: str, t0: float, t1: float) -> None:
         t1 = float(t1)
@@ -104,7 +98,11 @@ class DispatchRecord:
         with other work must start at its true entry time, not be
         backdated to the previous stage boundary).
         """
-        return _SegmentCtx(self, stage, chained=chained)
+        # Built without ``_SegmentCtx.__init__``'s frame: two of these
+        # open on every sweep.
+        ctx = _new(_SegmentCtx)
+        ctx._rec, ctx._stage, ctx._chained = self, stage, chained
+        return ctx
 
     def now(self) -> float:
         return self._profiler.now()
@@ -115,13 +113,9 @@ class DispatchRecord:
 
 
 class _SegmentCtx:
-    __slots__ = ("_rec", "_stage", "_chained", "_t0")
+    """One segment's scope, made by ``DispatchRecord.segment``."""
 
-    def __init__(self, rec: DispatchRecord, stage: str,
-                 chained: bool = True):
-        self._rec, self._stage = rec, stage
-        self._chained = chained
-        self._t0 = 0.0
+    __slots__ = ("_rec", "_stage", "_chained", "_t0")
 
     def __enter__(self):
         rec = self._rec
@@ -132,9 +126,20 @@ class _SegmentCtx:
         return self
 
     def __exit__(self, *exc):
+        # ``DispatchRecord.add_segment`` written out: this runs twice a
+        # sweep, and its times are floats already.
         rec = self._rec
-        rec.add_segment(self._stage, self._t0,
-                        time.perf_counter() + rec._anchor)
+        t1 = time.perf_counter() + rec._anchor
+        seg = {"stage": str(self._stage), "t0": self._t0, "t1": t1}
+        stack = getattr(_trace_tls, "stack", None)
+        if stack:
+            trace = stack[-1]
+            seg["height"] = trace.height
+            if trace.template:
+                seg["template"] = trace.template
+        rec.record["segments"].append(seg)
+        if rec._last_end is None or t1 > rec._last_end:
+            rec._last_end = t1
         return False
 
 
@@ -209,13 +214,18 @@ class PipelineProfiler:
             stack = getattr(_trace_tls, "stack", None)
             if stack:
                 meta["height"] = stack[-1].height
+        # Built without an ``__init__`` frame: one opens on every sweep.
+        rec = _new(DispatchRecord)
+        rec._profiler, rec._anchor, rec._last_end = self, self._anchor, None
         with self._lock:
-            rec = DispatchRecord(self, self._next_id, telemetry._mesh_rank,
-                                 meta)
+            rec.record = {"dispatch": self._next_id,
+                          "rank": telemetry._mesh_rank, "meta": meta,
+                          "segments": []}
             self._next_id += 1
-            self._records.append(rec)
-            if len(self._records) > self._capacity:
-                del self._records[:len(self._records) - self._capacity]
+            records = self._records
+            records.append(rec)
+            if len(records) > self._capacity:
+                del records[:len(records) - self._capacity]
             return rec
 
     def segment_on_last(self, stage: str, chained: bool = True):

@@ -33,7 +33,8 @@ ranks: ``mine --fused --coordinator``) the reference's collective inside
 the k-block loop is gloo's, on the host, so the host drives each call a
 round at a time (``_WorldCall``): the step kernel builds each header on
 the card as above; rank i sweeps its slice [r N B + i B, + B) of round r
-with the constant-ext sweep into a result buffer of its own, reads back
+with the constant-ext sweep into a result buffer of its own (or, with
+no slice in the round, launches nothing: ``world_slices``), reads back
 its (count, min) and runs ``winner_select`` over the group; the first
 round whose summed count is above 0 ends the block, and the selected
 (count, min), the same on every rank, is copied into the step's result
@@ -116,6 +117,38 @@ def sweep_cap(batch_pow2: int, max_rounds: int | None = None,
     return min(min(max_rounds, 0xFFFFFFFF) * round_size, NONCE_SPACE)
 
 
+@dataclasses.dataclass(frozen=True)
+class WorldSlices:
+    """One rank's slices of a block's sweep of [0, cap) in a world of
+    ``n_miners`` ranks: round r covers [r N B, (r + 1) N B), and rank i's
+    slice of it is [r N B + i B, + B). Every rank has the same number of
+    rounds, ceil(cap / N B), so every rank enters every winner-select of a
+    block; where a rank's slice of the last round starts at or past
+    ``cap`` (``sweep_cap`` clamps ``cap`` to 2^32, which a round need not
+    divide), ``start`` is None: the rank launches nothing and brings
+    (0, 0xFFFFFFFF) to the select. Together the ranks' slices tile
+    [0, cap): ``sweep_cap`` gives a multiple of B."""
+
+    rank: int
+    n_miners: int
+    batch: int
+    cap: int
+
+    def __len__(self) -> int:
+        return -(-self.cap // (self.n_miners * self.batch))
+
+    def start(self, r: int) -> int | None:
+        """The first nonce of this rank's slice of round r, or None."""
+        base = (r * self.n_miners + self.rank) * self.batch
+        return base if base < self.cap else None
+
+
+def world_slices(rank: int, n_miners: int, batch_pow2: int,
+                 cap: int) -> WorldSlices:
+    """The round plan of rank ``rank`` of a fused world (``WorldSlices``)."""
+    return WorldSlices(rank, n_miners, 1 << batch_pow2, cap)
+
+
 def make_fused_miner(k_blocks: int, batch_pow2: int, difficulty_bits: int,
                      *, kernel: str = "auto",
                      device: str | torch.device = "cuda",
@@ -159,13 +192,13 @@ def make_fused_miner(k_blocks: int, batch_pow2: int, difficulty_bits: int,
             raise ConfigError(
                 f"a fused world on a card runs the CUDA kernels, not "
                 f"kernel={kernel!r}")
-        batch = 1 << batch_pow2
-        slices = range(dist.get_rank(group) * batch, cap, n_miners * batch)
+        slices = world_slices(dist.get_rank(group), n_miners, batch_pow2,
+                              cap)
 
         def world_fn(prev_words, data_words, start_height: int):
             check(data_words)
             call = _WorldCall(prev_words, data_words, int(start_height),
-                              difficulty_bits, slices, batch, group)
+                              difficulty_bits, slices, group)
             return call, call.tip
 
         return world_fn
@@ -194,13 +227,13 @@ class _WorldCall:
     event = None
 
     def __init__(self, prev: torch.Tensor, data: torch.Tensor,
-                 start_height: int, difficulty_bits: int, slices: range,
-                 batch: int, group):
+                 start_height: int, difficulty_bits: int,
+                 slices: WorldSlices, group):
         device = prev.device
         k = data.shape[0]
         self.data, self.height, self.bits = data, start_height, \
             difficulty_bits
-        self.slices, self.batch, self.group = slices, batch, group
+        self.slices, self.group = slices, group
         self.on_card = device.type == "cuda"
         self.waits = 0
         # The first step builds a block, which resets the result buffer.
@@ -212,21 +245,28 @@ class _WorldCall:
                           height=start_height + 1,
                           difficulty_bits=difficulty_bits)
         self.opened = time.perf_counter()
-        self._first = self._slice(0) if slices else None
+        self._first = self._slice(0)
 
     def _slice(self, r: int):
-        """Starts this rank's slice of round r of the block at hand."""
-        return sha256_block.slice_launch(self.scratch, self.slices[r],
-                                         self.batch, self.bits)
+        """Starts this rank's slice of round r of the block at hand; None
+        when the rank has no slice in it (or the block no round)."""
+        start = self.slices.start(r)
+        if start is None:
+            return None
+        return sha256_block.slice_launch(self.scratch, start,
+                                         self.slices.batch, self.bits)
 
     def _select(self, read) -> tuple[int, int]:
-        """Waits for this rank's slice and selects the round's winner
-        over the group."""
+        """Waits for this rank's slice (``read``; None: no slice this
+        round, (0, 0xFFFFFFFF)) and selects the round's winner over the
+        group."""
         # The skew span stamps this rank's arrival at the round whose
         # epilogue is the winner-select rendezvous.
         with skew_span(site="mesh.sweep"):
-            local = read()
-            self.waits += self.on_card
+            local = (0, _NOT_FOUND)
+            if read is not None:
+                local = read()
+                self.waits += self.on_card
             return winner_select(*local, self.group)
 
     def wait(self) -> list[int]:
@@ -236,8 +276,8 @@ class _WorldCall:
         for j in range(k):
             best = _NOT_FOUND
             for r in range(len(self.slices)):
-                count, best = self._select(read or self._slice(r))
-                read = None
+                count, best = self._select(read if r == 0
+                                           else self._slice(r))
                 if count > 0:
                     sha256_block.put_result(self.scratch, count, best)
                     break
@@ -248,7 +288,7 @@ class _WorldCall:
                 height=self.height + j + 2, difficulty_bits=self.bits,
                 nonce_out=self.nonces[j:j + 1],
                 tip_out=self.tip if last else None)
-            if not last and self.slices:
+            if not last:
                 read = self._slice(0)
         return nonces
 

@@ -35,7 +35,16 @@ def counter(name: str, help: str = "", **labels) -> Counter:
     while the kill switch is on)."""
     if _registry._telemetry_off:
         return NULL_METRIC
-    return _registry._default._get(Counter, name, help, labels)
+    # ``Registry._get``'s hit on its call-site table, answered here
+    # without its frame: counters are per-sweep emits.
+    reg = _registry._default
+    try:
+        m = reg._by_call.get((Counter, name, tuple(labels.items())))
+    except TypeError:               # an unhashable label value
+        m = None
+    if m is None or (help and not m.help):
+        return reg._get(Counter, name, help, labels)
+    return m
 
 
 # ---- mesh-rank context ----------------------------------------------------
@@ -98,7 +107,12 @@ def heartbeat(name: str) -> Gauge:
                           f"'_heartbeat'")
     if _registry._telemetry_off:
         return NULL_METRIC
-    return _registry._default._get(Gauge, name, _HEARTBEAT_HELP, {})
+    # As in ``counter``: the call-site table's hit without a frame.
+    reg = _registry._default
+    m = reg._by_call.get((Gauge, name, ()))
+    if m is None or not m.help:
+        return reg._get(Gauge, name, _HEARTBEAT_HELP, {})
+    return m
 
 
 _HEARTBEAT_HELP = ("progress heartbeat (value: progress marker; last_set "

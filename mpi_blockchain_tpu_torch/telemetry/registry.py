@@ -210,24 +210,31 @@ class Histogram(_Metric):
                      else self.RESERVOIR_SIZE)
         self._reservoir: list[float] = []
         seed = zlib.crc32(repr((name, labels)).encode())
-        self._rng = random.Random(seed)
+        self._getrandbits = random.Random(seed).getrandbits
 
     def observe(self, value: float) -> None:
         with self._lock:
-            self._count += 1
+            count = self._count = self._count + 1
             self._sum += value
-            if self._min is None or value < self._min:
+            low, high = self._min, self._max
+            if low is None or value < low:
                 self._min = value
-            if self._max is None or value > self._max:
+            if high is None or value > high:
                 self._max = value
-            if len(self._reservoir) < self._cap:
-                self._reservoir.append(value)
+            reservoir = self._reservoir
+            if len(reservoir) < self._cap:
+                reservoir.append(value)
             else:
-                # randrange(count) for count > 0, without its argument
-                # checks: the same draw from the same generator.
-                j = self._rng._randbelow(self._count)
+                # randrange(count) for count > 0, as ``Random._randbelow``
+                # draws it (``getrandbits`` of count's bit length until
+                # below count), without its argument checks or its call:
+                # the same draw from the same generator.
+                bits, k = self._getrandbits, count.bit_length()
+                j = bits(k)
+                while j >= count:
+                    j = bits(k)
                 if j < self._cap:
-                    self._reservoir[j] = value
+                    reservoir[j] = value
 
     @property
     def count(self):

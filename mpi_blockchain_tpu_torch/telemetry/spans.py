@@ -38,6 +38,7 @@ from . import registry as _registry
 from .registry import Registry
 
 _tls = threading.local()
+_new = object.__new__
 
 
 @dataclasses.dataclass(slots=True)
@@ -114,11 +115,24 @@ class span:
         if _registry._telemetry_off:
             # No clock reads, no stack push, nothing filed.
             return _NULL_SPAN
-        stack = self._stack = _stack()
-        s = self._span = Span(self._name, stack[-1].name if stack else None,
-                              len(stack), self._attrs)
+        stack = getattr(_tls, "stack", None)
+        if stack is None:
+            stack = _tls.stack = []
+        self._stack = stack
+        # ``Span(name, parent, depth, attrs)`` without the dataclass's
+        # ``__init__`` frame.
+        s = self._span = _new(Span)
+        s.name, s.parent, s.depth, s.attrs, s.duration_s = (
+            self._name, stack[-1].name if stack else None, len(stack),
+            self._attrs, None)
         stack.append(s)
-        r = self._range = _profiler_range(self._name)
+        # ``_profiler_range``'s answer while no profiler records, without
+        # its call.
+        ap = _autograd_profiler
+        r = self._range = (
+            _NO_RANGE if ap is not None
+            and not getattr(ap, "_is_profiler_enabled", False)
+            else _profiler_range(self._name))
         self._t0 = time.perf_counter()
         if r is not _NO_RANGE:
             r.__enter__()
@@ -135,6 +149,14 @@ class span:
             s.duration_s = time.perf_counter() - self._t0
             self._stack.pop()
             self._span = None
-            (self._registry if self._registry is not None
-             else _registry._default).record_span(s)
+            reg = (self._registry if self._registry is not None
+                   else _registry._default)
+            # ``Registry.record_span`` without its frame once the span's
+            # summary exists: the log, then the summary.
+            hist = reg._span_hists.get(s.name)
+            if hist is None:
+                reg.record_span(s)
+            else:
+                reg._spans.append(s)
+                hist.observe(s.duration_s)
         return False

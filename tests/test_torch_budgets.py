@@ -78,7 +78,7 @@ def require_card():
 
 def test_the_four_families_are_registered_and_wired():
     families = analysis.pass_families()
-    assert len(families) == 15
+    assert len(families) == 16
     assert {"spmd", "opbudget", "trb", "sbd"} <= set(families)
     for prefix, family in (("SPMD", "spmd"), ("OPB", "opbudget"),
                            ("TRB", "trb"), ("SBD", "sbd")):

@@ -915,3 +915,33 @@ def test_phase_17_fails_on_any_drifted_or_unarmed_census(monkeypatch):
                         "RATCHET INCREASE: traced collective census"}]
     with pytest.raises(chip_smoke.SmokeFailure, match="17c rank 1"):
         chip_smoke.phase_budgets()
+
+
+def _gate_stdout(names, verdict="resolves"):
+    lines = ["gate: device cuda: NVIDIA H100 80GB HBM3 (NVIDIA H100 80GB "
+             "HBM3, 700.00 W)"]
+    lines += [f"gate: {n}: {verdict}: python -m x --device cuda"
+              for n in names]
+    lines.append(f"gate: resolved {len(names)} step(s) on cuda in 2.0 s")
+    return "\n".join(lines) + "\n"
+
+
+def test_phase_18_gate_verdict_needs_every_step_resolved(monkeypatch):
+    from mpi_blockchain_tpu_torch.gate import STEPS
+
+    names = [s.name for s in STEPS]
+    ok = {"rc": 0, "stdout": _gate_stdout(names), "err": "", "wall_s": 2.5}
+    assert len(chip_smoke.gate_verdict(ok)) == len(STEPS) + 2
+    monkeypatch.setattr(chip_smoke, "nvidia_smi", lambda q: "card, 700 W")
+    monkeypatch.setattr(chip_smoke, "run_module", lambda m, a, t: ok)
+    assert chip_smoke.phase_gate() == {"wall_s": 2.5, "steps": len(STEPS)}
+    bad = [dict(ok, rc=2, stdout='{"error": "no CUDA device is available"}'),
+           dict(ok, stdout=_gate_stdout(names[:-1])),
+           dict(ok, stdout=_gate_stdout(names).replace(
+               "gate: lint: resolves", "gate: lint: its parser refused the "
+               "arguments (exit 2)")),
+           dict(ok, stdout=_gate_stdout(names).replace("device cuda",
+                                                       "device cpu"))]
+    for res in bad:
+        with pytest.raises(chip_smoke.SmokeFailure, match="phase 18"):
+            chip_smoke.gate_verdict(res)

@@ -14,6 +14,7 @@ identical to the sequential oracle's, and the detector judges fixed
 payloads as the reference's does.
 """
 import json
+import types
 
 import numpy as np
 import pytest
@@ -27,12 +28,14 @@ from mpi_blockchain_tpu.meshprof import analyzer as ref_analyzer
 from mpi_blockchain_tpu.meshwatch import bubble as ref_bubble
 from mpi_blockchain_tpu.perfwatch import detector as ref_detector
 from mpi_blockchain_tpu.perfwatch import history as ref_history
+from mpi_blockchain_tpu.telemetry import registry as ref_registry
 from mpi_blockchain_tpu_torch import telemetry
 from mpi_blockchain_tpu_torch.blocktrace import critical_path, export
 from mpi_blockchain_tpu_torch.chainwatch import rules
 from mpi_blockchain_tpu_torch.meshprof import analyzer
 from mpi_blockchain_tpu_torch.meshwatch import bubble, pipeline
 from mpi_blockchain_tpu_torch.perfwatch import detector, history
+from mpi_blockchain_tpu_torch.telemetry import registry
 from test_torch_blocktrace import RECORD_SETS
 
 torch.set_num_threads(1)
@@ -113,11 +116,21 @@ def test_the_seeded_sets_join_rounds_and_name_stragglers():
     assert {r["straggler_rank"] for r in joined} >= {-1, 0, 1}
 
 
+def _fixed_clock(monkeypatch):
+    """One clock for both registries: each gauge's ``age_s`` is read from
+    its registry module's ``time.monotonic`` at the snapshot, so two
+    snapshots taken a moment apart would differ by the moment."""
+    clock = types.SimpleNamespace(monotonic=lambda: 1000.0)
+    for module in (registry, ref_registry):
+        monkeypatch.setattr(module, "time", clock)
+
+
 @pytest.mark.parametrize("seed", [1, 4, 9])
 def test_publish_skew_feeds_the_skew_rule_as_the_reference(seed,
                                                           monkeypatch):
     monkeypatch.setenv("MPIBT_CHAINWATCH_SKEW_MS", "1.0")
     monkeypatch.setenv("MPIBT_CHAINWATCH_SKEW_MIN_ROUNDS", "2")
+    _fixed_clock(monkeypatch)
     report = analyzer.analyze_skew(span_shards(seed))
     analyzer.publish_skew(report)
     ref_analyzer.publish_skew(report)
@@ -128,6 +141,30 @@ def test_publish_skew_feeds_the_skew_rule_as_the_reference(seed,
     ctx = {"height": None, "source": "test", "now": 0.0}
     got = [rule.evaluate(ctx) for _ in range(3)]
     assert got == [ref_rule.evaluate(ctx) for _ in range(3)]
+
+
+@pytest.mark.parametrize("seed", [1, 4, 9])
+def test_publish_skew_comparison_fails_on_a_gauge_left_unset(seed,
+                                                             monkeypatch):
+    """The fixed clock keeps the comparison's teeth: the port's overall
+    straggler gauge left unset (registered, never set: no value, no age)
+    must not compare equal to the reference's."""
+    _fixed_clock(monkeypatch)
+    report = analyzer.analyze_skew(span_shards(seed))
+    set_gauge = registry.Gauge.set
+
+    def skip_overall(self, value):
+        if not (self.name == "mesh_straggler_rank" and not self.labels):
+            set_gauge(self, value)
+
+    monkeypatch.setattr(registry.Gauge, "set", skip_overall)
+    analyzer.publish_skew(report)
+    ref_analyzer.publish_skew(report)
+    got = telemetry.default_registry().snapshot()
+    want = ref_telemetry.default_registry().snapshot()
+    assert got != want
+    unset = [g for g in got["mesh_straggler_rank"] if not g["labels"]]
+    assert unset and unset[0]["age_s"] is None
 
 
 def test_the_skew_rule_fires_on_a_published_straggler(monkeypatch):

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import mpi_blockchain_tpu.chainwatch as ref_chainwatch
+import mpi_blockchain_tpu.dispatchwatch as ref_dispatchwatch
 import mpi_blockchain_tpu.meshwatch.aggregate as ref_aggregate
 import mpi_blockchain_tpu.meshwatch.shard as ref_shard
 from mpi_blockchain_tpu import telemetry as ref_telemetry
@@ -38,7 +39,7 @@ from mpi_blockchain_tpu.cli import main as ref_main
 from mpi_blockchain_tpu.meshwatch import pipeline as ref_pipeline
 from mpi_blockchain_tpu.meshwatch.server import MeshServer as RefMeshServer
 from mpi_blockchain_tpu.telemetry import flight_recorder as ref_flight
-from mpi_blockchain_tpu_torch import chainwatch, telemetry
+from mpi_blockchain_tpu_torch import chainwatch, dispatchwatch, telemetry
 from mpi_blockchain_tpu_torch.cli import main
 from mpi_blockchain_tpu_torch.meshwatch import aggregate, pipeline, shard
 from mpi_blockchain_tpu_torch.meshwatch.server import MeshServer
@@ -50,10 +51,12 @@ torch.set_num_threads(1)
 
 NOW = 1_800_000_000.0
 PORT = dict(telemetry=telemetry, pipeline=pipeline, aggregate=aggregate,
-            shard=shard, chainwatch=chainwatch, flight=flight_recorder)
+            shard=shard, chainwatch=chainwatch, flight=flight_recorder,
+            dispatchwatch=dispatchwatch)
 REF = dict(telemetry=ref_telemetry, pipeline=ref_pipeline,
            aggregate=ref_aggregate, shard=ref_shard,
-           chainwatch=ref_chainwatch, flight=ref_flight)
+           chainwatch=ref_chainwatch, flight=ref_flight,
+           dispatchwatch=ref_dispatchwatch)
 
 
 def _reset():
@@ -66,6 +69,9 @@ def _reset():
         pkg["telemetry"].set_mesh_rank(0)
         pkg["pipeline"].reset_profiler()
         pkg["aggregate"]._stale_announced.clear()
+        # A shard carries the process's compile census, which an earlier
+        # test in the same process may have filled.
+        pkg["dispatchwatch"].clear_compiles()
 
 
 @pytest.fixture(autouse=True)

@@ -12,7 +12,12 @@ then:
    the edges of the nonce space and at the edges of the kernel's slices
    (two winners in different slices, a count that is not a multiple of
    the slice, a winner in the first slice and one in the last, ragged
-   slice ending at 2^32);
+   slice ending at 2^32); and the stamped build, which the traced
+   pipelined ``Miner`` launches, against the plain version at dbits 16 and
+   24 with and without early exit, on windows that hold a winner, its
+   stamps written and its window (``%globaltimer``, end less start) no
+   longer than CUDA events recorded around the library's call that
+   launches it, and at the audit's full 2^24 round (``phase_stamped``);
 2. holds the CUDA backend against the CPU backend and the C++
    ``cpu_search`` on random headers, starts and ranges;
 3. mines the chains the reference pinned in PERF_HISTORY.jsonl through the
@@ -144,13 +149,14 @@ then:
    (``tracing_cost``); for each traced run the ``pipeline`` object,
    ``critical_path_report`` over its records, complete for every height
    1..1000 with the gap under 5%, the union of its ``device`` segments
-   (taken from the card's timing events) against the sweeps' CUDA-event
+   (taken from the stamps the sweeps' read-backs bring) against the
+   sweeps' CUDA-event
    sum (events recorded right around the library's call that launches
    each sweep, ``timed_library_calls``; it may not exceed it), and
    ``bubble_fraction`` against 1 - sweeps / wall (within 0.05); and the
-   host cost of the sweep's timing events a
-   launch (only a traced pipelined ``Miner`` asks for them) against the
-   plain event every other launch records (``event_cost_us``); (b)
+   host cost of a stamped launch and its read (only a traced pipelined
+   ``Miner`` asks for them) against a plain launch and its read, with no
+   elapsed-time call (``event_cost_us``); (b)
    ``mine --fused`` d24/n1000 at 100 blocks a call, traced: the pin, the
    ``pipeline`` object, one host wait a call and no hidden sync, the
    compile census with the k-block program built once, no ``nvcc`` build
@@ -166,7 +172,9 @@ then:
    the reference's 3% bound, up to four reads as the reference's trace
    smoke takes them (``OVERHEAD_ATTEMPTS``), after a null read with both
    halves off (the estimator's zero), and ``measure_block_observe``
-   within its 300 us bound.
+   within its 300 us bound; then the tick of ``%globaltimer`` on the card
+   and the split of an audit's paired delta by segment
+   (``tools/overhead_split.py``).
 12. mesh observability (``meshwatch``, ``meshprof.analyzer``): (a) ``mine``
    d24/n1000/2^24 through the pipelined ``Miner`` without and with
    ``--mesh-obs`` in turns (``MESH_OBS_TURNS``), with events around the
@@ -453,9 +461,8 @@ SERVE_WINDOW_HALF = 1 << 15
 # against 1 - sweeps / wall within this.
 TRACE_TURNS = ("traced", "off", "off", "traced") * 3
 BUBBLE_TOLERANCE = 0.05
-# (a) the host cost of the timing events a launch: timed launches and
-# their read-backs against launches with one plain event, this many a
-# turn.
+# (a) the host cost of the stamps a launch: stamped launches and their
+# reads against plain launches and theirs, this many a turn.
 EVENT_COST_LAUNCHES = 2000
 # (c) the chainwatch run: the d20/n10 pin, every block evaluated, and the
 # fault plan of the reference's chainwatch smoke (two consecutive
@@ -471,6 +478,9 @@ INCIDENT_FAULT = {"site": "backend.cuda.dispatch", "kind": "raise",
 OVERHEAD_ATTEMPTS = ({}, {"seconds": 1.5, "reps": 5},
                      {"seconds": 1.5, "reps": 5}, {"seconds": 2.0, "reps": 5})
 OVERHEAD_PAUSE_S = 5.0
+# (d) the split of a read: seconds of paired rounds of the audit's
+# instrumented round against its off round, segment by segment.
+OVERHEAD_SPLIT_S = 2.0
 # Phase 12: mesh observability. (a) the d24/n1000 pipelined Miner through
 # ``mine``, with the shard (``--mesh-obs``) and without, in these turns;
 # (b) to (d) the multi-rank smokes, each with its ranks on the card.
@@ -544,7 +554,7 @@ PERFWATCH_TIMEOUT_S = 240
 # process of its own; the driver's known-answer cases (sanitize_main.cu).
 ANALYSIS_TIMEOUT_S = 600
 SANITIZER_TIMEOUT_S = 900
-SANITIZER_CASES = 24
+SANITIZER_CASES = 25
 # Phase 17: the budget movers' checks, and the shape of 17 c's round (the
 # d20/n10/b20 pin's, as phase 8's world).
 BUDGET_TIMEOUT_S = 300
@@ -776,6 +786,119 @@ def phase_kernel_vs_plain(rng, device):
     return mismatches, max_err
 
 
+# Phase 1: the stamped build. Windows of this many nonces around the
+# lowest winner of a header at each of these difficulties, then this many
+# of the audit's rounds (2^24 nonces at dbits 64) stamped within events.
+STAMPED_DBITS = (16, 24)
+STAMPED_WINDOW = 1 << 20
+STAMPED_ROUNDS = 9
+
+
+def stamped_launch(ext, base: int, count: int, dbits: int, early_exit: bool,
+                   device) -> tuple[tuple, float]:
+    """One launch of the stamped build on an idle card, with CUDA events
+    around the library's call that launches it (``timed_library_calls``);
+    returns (count, min_nonce, start_ns, end_ns) and the events' ms."""
+    import torch
+
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda
+
+    out = sha256_cuda.new_result(device, stamped=True)
+    events: list = []
+    torch.cuda.synchronize()
+    with timed_library_calls(sha256_cuda.library(), events,
+                             lambda: torch.cuda.Event(enable_timing=True)):
+        sha256_cuda.launch(ext, base, count, dbits, out,
+                           early_exit=early_exit)
+    (before, after), = events
+    words = sha256_cuda.read_result(out, sha256_cuda.STAMPED_RESULT_WORDS)
+    return words, before.elapsed_time(after)
+
+
+def phase_stamped(device) -> dict:
+    """The stamped build against the plain version on the card: at each
+    of ``STAMPED_DBITS``, with and without early exit, on a window of
+    ``STAMPED_WINDOW`` nonces around the header's lowest winner (found by
+    the production build over [0, 2^32)), the same (count, min_nonce),
+    both stamps written, and the window (end less start) no longer than
+    the events around the library's call that launches it; then
+    ``STAMPED_ROUNDS`` audit rounds.
+    Returns mismatches, max_abs_err and the windows against the events."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mpi_blockchain_tpu_torch import core
+    from mpi_blockchain_tpu_torch.ops import sha256_cuda, sha256_torch
+    from mpi_blockchain_tpu_torch.ops.sha256_sched import extend_midstate
+
+    # Its own generator, so the draws of the other phases stay as they
+    # were.
+    rng = np.random.default_rng(20261018)
+    mismatches, max_err, cases = 0, 0, []
+    for d in STAMPED_DBITS:
+        ext = extend_midstate(*core.header_midstate(random_header(rng)))
+        found, winner = sha256_cuda.sweep(ext, 0, NONCE_SPACE, d,
+                                          device=device, early_exit=True)
+        check(found > 0, f"phase 1 stamped: no winner at dbits {d}")
+        base = min(max(0, winner - STAMPED_WINDOW // 2),
+                   NONCE_SPACE - STAMPED_WINDOW)
+        ext_t = torch.as_tensor(ext.astype(np.int64), device=device)
+        for early_exit in (False, True):
+            (count, best, start, end), events_ms = stamped_launch(
+                ext, base, STAMPED_WINDOW, d, early_exit, device)
+            p = sha256_torch.sweep_core_ext(ext_t, base, STAMPED_WINDOW, d,
+                                            early_exit=early_exit)
+            same = best == p[1] and (
+                (count > 0) == (p[0] > 0) if early_exit else count == p[0])
+            err = abs(best - p[1]) if early_exit else \
+                max(abs(count - p[0]), abs(best - p[1]))
+            max_err = max(max_err, err)
+            window_ms = (end - start) / 1e6
+            cases.append({"dbits": d, "early_exit": early_exit,
+                          "base": base, "winner": best,
+                          "window_ms": window_ms, "events_ms": events_ms})
+            if not same:
+                mismatches += 1
+                log(f"MISMATCH stamped dbits={d} base={base:#x} "
+                    f"early_exit={early_exit}: kernel {(count, best)} "
+                    f"plain {p}")
+            check(start != (1 << 64) - 1 and end != 0 and start <= end,
+                  f"phase 1 stamped dbits {d} early_exit {early_exit}: "
+                  f"stamps not written: start {start:#x}, end {end:#x}")
+            check(window_ms <= events_ms,
+                  f"phase 1 stamped dbits {d} early_exit {early_exit}: "
+                  f"window {window_ms:.6f} ms longer than the events' "
+                  f"{events_ms:.6f} ms")
+    ext = extend_midstate(*core.header_midstate(bytes(range(80))))
+    rounds = []
+    for i in range(STAMPED_ROUNDS):
+        (count, best, start, end), events_ms = stamped_launch(
+            ext, i * TIMED_NONCES, TIMED_NONCES, 64, False, device)
+        check((count, best) == (0, 0xFFFFFFFF) and start <= end
+              and (end - start) / 1e6 <= events_ms,
+              f"phase 1 stamped round {i}: {(count, best)}, window "
+              f"{(end - start) / 1e6} ms, events {events_ms} ms")
+        rounds.append(((end - start) / 1e6, events_ms))
+    out = {"mismatches": mismatches, "max_abs_err": max_err,
+           "cases": cases,
+           "round_window_ms": statistics.median(w for w, _ in rounds),
+           "round_events_ms": statistics.median(e for _, e in rounds),
+           "round_events_less_window_us": statistics.median(
+               (e - w) * 1e3 for w, e in rounds)}
+    log(f"phase 1 stamped build vs plain: {len(cases)} comparisons, "
+        f"mismatches {mismatches}, max_abs_err {max_err}; windows against "
+        f"events (ms): "
+        f"{[(c['window_ms'], round(c['events_ms'], 6)) for c in cases]}; "
+        f"2^24 rounds at dbits 64: window {out['round_window_ms']:.6f} ms, "
+        f"events {out['round_events_ms']:.6f} ms, the events longer by "
+        f"{out['round_events_less_window_us']:.3f} us (medians of "
+        f"{STAMPED_ROUNDS})")
+    check(mismatches == 0, f"{mismatches} stamped/plain mismatches")
+    return out
+
+
 def phase_backend(rng, device):
     from mpi_blockchain_tpu_torch import core
     from mpi_blockchain_tpu_torch.backend.cpu import CpuBackend
@@ -805,7 +928,7 @@ def phase_backend(rng, device):
 
 # The library's entries that launch the sweep with ext in host memory,
 # the only ones the per-block Miner calls.
-SWEEP_ENTRIES = ("sha256d_sweep_launch", "sha256d_sweep_launch_timed")
+SWEEP_ENTRIES = ("sha256d_sweep_launch", "sha256d_sweep_launch_stamped")
 
 
 @contextlib.contextmanager
@@ -2827,14 +2950,17 @@ def check_no_incident(incident_dir: str, events: list, registry,
 
 
 def event_cost_us(device, n: int = EVENT_COST_LAUNCHES) -> dict:
-    """Host us of ``sha256_cuda.sweep_launch`` with its one plain event
-    and inside ``timed_launches`` with a timing pair from the pool, in
-    turns plain, timed, timed, plain after a warming timed turn, medians;
-    the sweep is one nonce at a difficulty nothing meets. ``plain_us`` a
-    launch (every untraced launch) and dropping it (its event destroyed);
-    ``timed_us`` a traced launch and dropping it (its pair back in the
-    pool); ``read_us`` its ``timing()`` once done; ``extra_us`` what a
-    traced launch adds, timed and read less plain."""
+    """Host us of ``sha256_cuda.sweep_launch`` plain and inside
+    ``timed_launches`` (the stamped build), in turns plain, stamped,
+    stamped, plain after a warming stamped turn, medians; the sweep is one
+    nonce at a difficulty nothing meets. ``plain_us`` a launch and
+    dropping it (every untraced launch); ``stamped_us`` a traced one;
+    ``plain_read_us`` its ``result()`` once done; ``read_us`` a stamped
+    sweep's ``result()`` and ``timing()`` once done, as the traced
+    ``Miner`` consumes it; ``extra_us`` what a traced launch adds, stamped
+    and read less plain and read. ``elapsed_calls`` counts the CUDA
+    events' elapsed-time reads in the stamped turns: the stamps need
+    none."""
     import statistics
 
     import torch
@@ -2843,33 +2969,55 @@ def event_cost_us(device, n: int = EVENT_COST_LAUNCHES) -> dict:
     from mpi_blockchain_tpu_torch.ops import extend_midstate, sha256_cuda
 
     ext = extend_midstate(*core.header_midstate(bytes(range(80))))
+    elapsed_calls = 0
+    elapsed_time = torch.cuda.Event.elapsed_time
 
-    def turn(timed: bool) -> tuple[float, float]:
+    def counted(self, end):
+        nonlocal elapsed_calls
+        elapsed_calls += 1
+        return elapsed_time(self, end)
+
+    def turn(stamped: bool) -> tuple[float, float]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with sha256_cuda.timed_launches(timed):
+        with sha256_cuda.timed_launches(stamped):
             swept = [sha256_cuda.sweep_launch(ext, 0, 1, 64, device=device)
                      for _ in range(n)]
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        if timed:
-            for launched in swept:
+        for launched in swept:
+            launched.result()
+            if stamped:
                 launched.timing()
         t3 = time.perf_counter()
+        check(all(launched.timed == stamped for launched in swept),
+              f"phase 11a: a {'stamped' if stamped else 'plain'} turn "
+              f"launched the other build")
         swept.clear()
         t4 = time.perf_counter()
         return (t1 - t0 + t4 - t3) / n * 1e6, (t3 - t2) / n * 1e6
 
-    turn(True)
-    times: dict[str, list[float]] = {"plain": [], "timed": [], "read": []}
-    for label in ("plain", "timed", "timed", "plain"):
-        launch_us, read_us = turn(label == "timed")
-        times[label].append(launch_us)
-        if label == "timed":
-            times["read"].append(read_us)
+    torch.cuda.Event.elapsed_time = counted
+    try:
+        turn(True)
+        times: dict[str, list[float]] = {
+            "plain": [], "stamped": [], "plain_read": [], "read": []}
+        for label in ("plain", "stamped", "stamped", "plain"):
+            launch_us, read_us = turn(label == "stamped")
+            times[label].append(launch_us)
+            times["read" if label == "stamped" else "plain_read"].append(
+                read_us)
+    finally:
+        torch.cuda.Event.elapsed_time = elapsed_time
     out = {f"{k}_us": statistics.median(v) for k, v in times.items()}
-    out["extra_us"] = out["timed_us"] + out["read_us"] - out["plain_us"]
+    out["extra_us"] = (out["stamped_us"] + out["read_us"]
+                       - out["plain_us"] - out["plain_read_us"])
+    out["elapsed_calls"] = elapsed_calls
+    check(elapsed_calls == 0 and not hasattr(sha256_cuda.library(),
+                                             "sha256d_event_elapsed_ms"),
+          f"phase 11a: {elapsed_calls} elapsed-time reads in the stamped "
+          f"turns, or the library still has an elapsed-time entry")
     return out
 
 
@@ -2999,14 +3147,15 @@ def phase_trace(device, cold_nvcc: int) -> dict:
     """Phase 11: per-block tracing on the main path. (a) the d24/n1000
     pipelined Miner traced and off in turns: walls, host ms a block, the
     pipeline object, every height's critical path, the device windows
-    against the sweeps' events, and the timing events' host cost a
-    launch; (b) ``mine --fused`` d24/n1000 at 100 a call, traced: the
+    against the sweeps' events, and the stamps' host cost a launch;
+    (b) ``mine --fused`` d24/n1000 at 100 a call, traced: the
     pipeline object, one host wait a call, no hidden sync, each k-block
     program built once, no nvcc build on the warm cache (``cold_nvcc``:
     the startup build's, 1 from a cold checkout); (c) ``--incident-dir``:
     the clean d20/n10 run raises nothing, the faulted one one
     ``event_storm`` with a complete bundle; (d) the overhead audits on the
-    card, against the reference's bound."""
+    card, against the reference's bound, the tick of ``%globaltimer`` and
+    the split of a read by segment."""
     import torch
 
     from mpi_blockchain_tpu_torch import dispatchwatch, telemetry
@@ -3016,6 +3165,7 @@ def phase_trace(device, cold_nvcc: int) -> dict:
     from mpi_blockchain_tpu_torch.meshwatch.pipeline import reset_profiler
     from mpi_blockchain_tpu_torch.ops import sha256_block, sha256_cuda
     from mpi_blockchain_tpu_torch.perfwatch.detector import SECTION_BOUNDS
+    from mpi_blockchain_tpu_torch.tools import overhead_split
 
     out: dict = {"miner": {"traced": [], "off": []}}
     for turn in TRACE_TURNS:
@@ -3042,11 +3192,13 @@ def phase_trace(device, cold_nvcc: int) -> dict:
         f"{cost['median_wall_s']['off']:.6f} s (medians)")
     events = event_cost_us(device)
     out["event_cost_us"] = events
-    log(f"phase 11a timing events a launch: sweep_launch "
-        f"{events['timed_us']:.4f} us traced (a pooled pair recorded in "
-        f"the library's call) and {events['read_us']:.4f} us to read it, "
-        f"against {events['plain_us']:.4f} us with one plain event: "
-        f"{events['extra_us']:.4f} us more a traced launch")
+    log(f"phase 11a stamps a launch: sweep_launch "
+        f"{events['stamped_us']:.4f} us traced (the stamped build) and "
+        f"{events['read_us']:.4f} us to read its result and window, "
+        f"against {events['plain_us']:.4f} and "
+        f"{events['plain_read_us']:.4f} us plain: {events['extra_us']:.4f} "
+        f"us more a traced launch; {events['elapsed_calls']} elapsed-time "
+        f"reads")
 
     # (b) the fused run through the CLI, traced, with the census. The
     # detector's check also takes its one-time prototype warning.
@@ -3143,13 +3295,22 @@ def phase_trace(device, cold_nvcc: int) -> dict:
     check(observe["block_observe_us"]
           <= SECTION_BOUNDS["trace_block_observe"],
           f"phase 11d: block observe {observe}")
+    tick = overhead_split.globaltimer_tick(device)
+    check(tick["steps"] > 0 and tick["tick_ns"] > 0,
+          f"phase 11d: %globaltimer did not step: {tick}")
+    split = overhead_split.armed_split("full", OVERHEAD_SPLIT_S, 1,
+                                       TIMED_NONCES, str(device))
     out["overhead"] = {"null": null, "trace_overhead": reads,
-                       "trace_block_observe": observe}
+                       "trace_block_observe": observe, "globaltimer": tick,
+                       "split": split}
     log(f"phase 11d trace_overhead on the card: null (both halves off) "
         f"{null['overhead_pct']}%, reads "
         f"{[r['overhead_pct'] for r in reads]}% (bound {bound}%), last "
         f"read {reads[-1]}; block observe {observe} (bound "
         f"{SECTION_BOUNDS['trace_block_observe']} us)")
+    log(f"phase 11d %globaltimer: {tick}; the read split by segment, us "
+        f"(tools/overhead_split.py, the full variant, "
+        f"{OVERHEAD_SPLIT_S} s of pairs): {split}")
     return out
 
 
@@ -4421,6 +4582,7 @@ def main() -> int:
             sha256_cuda.COMPILE_SITE, {}).get("compiles", 0)
         rng = np.random.default_rng(20261016)
         mismatches, max_err = phase_kernel_vs_plain(rng, device)
+        stamped = phase_stamped(device)
         phase_backend(rng, device)
         chain = phase_tips(device)
         timing = phase_timing(rng, device)
@@ -4460,7 +4622,9 @@ def main() -> int:
         "launches_miner_d24_n1000": chain["launches"],
         "searches": chain["searches"], "mismatches": mismatches,
         "ext_symbol_mismatches": symbol_mismatches,
-        "max_abs_err": max_err, "bound_by": "operations", "library_ms": None,
+        "stamped_mismatches": stamped["mismatches"], "stamped": stamped,
+        "max_abs_err": max(max_err, stamped["max_abs_err"]),
+        "bound_by": "operations", "library_ms": None,
         **timing,
         "d24_n1000_wall_s": chain["wall_s"],
         "d24_n1000_hashes_per_s": chain["hashes_per_s"],

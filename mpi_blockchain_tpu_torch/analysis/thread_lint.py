@@ -100,8 +100,8 @@ WAIT_SEAMS = {
     f"{_PKG}/backend/cuda.py":
         "the sweep's read-back on the card (polled ready first)",
     f"{_PKG}/ops/sha256_cuda.py":
-        "the ext-symbol lock and the timing-pair pool (short critical "
-        "sections, no wait on the card held)",
+        "the ext-symbol lock (a short critical section, no wait on the "
+        "card held) and a sweep's read-back",
     f"{_PKG}/resilience/dispatch.py":
         "single-flight launch and resolve (ladder RLock; the wait on the "
         "card is outside it)",

@@ -16,10 +16,11 @@ bound (``perfwatch.detector.SECTION_BOUNDS``).
 The round: on a CUDA device, one sweep of 2^chunk_pow2 nonces through
 ``sha256_cuda.sweep_launch`` and its read-back, at a difficulty nothing
 meets (a full sweep, no early exit); the default, 2^24, is the main
-path's sweep of one block. Instrumented, the sweep is launched with its
-timing events and their read-back, as the pipelined ``Miner`` launches
-and consumes it; off, with its one plain event. On the CPU it is the C++ ``cpu_search`` of
-2^13 nonces, the reference's round.
+path's sweep of one block. Instrumented, the sweep is the stamped build,
+whose read-back brings its span on the card, and its window is taken from
+those stamps, as the pipelined ``Miner`` launches and consumes it; off,
+the plain build. Each carries one plain completion event. On the CPU it
+is the C++ ``cpu_search`` of 2^13 nonces, the reference's round.
 
 The per-block critical-path observation (``observe_block_metrics``) does
 not fire per sweep round; ``measure_block_observe`` prices it alone: the
@@ -65,8 +66,8 @@ def _sweep_fn(device: str):
 
     def sweep(base: int, chunk: int):
         # As the pipelined Miner's issue and consume: instrumented, the
-        # sweep carries timing events, read once it is done; off, one
-        # plain event.
+        # sweep is stamped and its window read from the stamps that came
+        # back with its result; off, the plain build.
         with sha256_cuda.timed_launches(not telemetry_disabled()):
             launched = sha256_cuda.sweep_launch(
                 ext, base % (1 << 32), chunk, _IMPOSSIBLE_DIFFICULTY,

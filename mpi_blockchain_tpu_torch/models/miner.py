@@ -59,11 +59,13 @@ closed at the consume would count every microsecond of host work done
 while the card sat idle as device time, and the bubble fraction would read
 near 0 whatever the card did. So on the card the window comes from the
 card: with its telemetry on, the driver issues each sweep inside
-``sha256_cuda.timed_launches``, so ``sweep_launch`` records timing events
-around it, and at the consume ``start.elapsed_time(end)`` is the sweep's
-device time (with the telemetry off, or on any other path, a sweep
-carries one plain event, which costs the host less). Sweeps on one stream
-run in order, so on the host's clock the window is ``[max(launched,
+``sha256_cuda.timed_launches``, so ``sweep_launch`` launches the stamped
+build, which writes its span on the card (``%globaltimer`` at the first
+block's start and, from a kernel that follows it, at its end) beside its
+result, and the read-back at the consume brings both in one copy: the
+stamps' difference is the sweep's device time (with the telemetry off, or
+on any other path, the plain build). Sweeps on one stream run in order,
+so on the host's clock the window is ``[max(launched,
 previous window's end), + device time]``, no extra synchronization and no
 thread (``_card_window``). A discarded speculative sweep that reached the
 card is drained the same way once it is done, at a later consume, as
@@ -383,7 +385,7 @@ class Miner:
         """Issues one sweep through the backend's ``search_async`` seam.
         The candidate build and the issue call are the ``enqueue``
         segment; the device window is recorded at the consume, from the
-        sweep's timing events, which only a traced issue asks for."""
+        sweep's stamps, which only a traced issue asks for."""
         w_start, w_end = windows.get(w_idx)
         with trace_block(height, template=template):
             prec = profiler().dispatch(kind="sweep", height=height,
@@ -437,8 +439,9 @@ class Miner:
     def _device_window(self, d: _SweepDispatch, t_wait: float,
                        t_done: float) -> tuple[float, float]:
         """A consumed dispatch's device window on the profiler's clock:
-        from its started sweep's launch and time (on the card, its
-        events; on a search thread, its stamps) when its result is that
+        from its started sweep's launch and time (on the card, the
+        kernel's stamps; on a search thread, the thread's) when its
+        result is that
         sweep's, from its first slice on the card to the consume for a
         search in a world of processes, else the call that did the work
         (the issue call of a synchronous ``search_async``, else the
@@ -507,8 +510,8 @@ class Miner:
         assumption they were issued under. Their records lose their block
         identity; one that already ran in its issue call keeps that
         window as unattributed work. Returns those whose sweep is on the
-        card with its timing events, which the caller drains at a later
-        consume (``_drain_card``), unattributed too."""
+        card with its stamps, which the caller drains at a later consume
+        (``_drain_card``), unattributed too."""
         on_card = []
         while pending:
             d = pending.popleft()

@@ -12,11 +12,12 @@
 // one by one.
 //
 // It covers the sweep by value (sha256d_sweep_launch, its measuring build
-// and its timed form) and from the __constant__ ext symbol
+// and its stamped form) and from the __constant__ ext symbol
 // (sha256d_sweep_launch_ext_symbol, which copies ext into kExtSymbol) at
 // difficulties 16 and 24, the step (build, finalize, back to back, and its
 // measuring build), the fused k-block call (step, symbol copy and sweep, k
-// times, with and without timing events) and the queries.
+// times, with and without timing events), the queries and the timer's
+// tick.
 //
 // Built by mpi_blockchain_tpu_torch/analysis/sanitizers.py into the
 // package's git-ignored build/ directory (one translation unit: this file
@@ -191,10 +192,13 @@ void to_host(T* dst, const T* src, size_t n) {
 }
 
 const uint32_t kFreshResult[4] = {0, 0xFFFFFFFFu, 0, 0};
+// A stamped result buffer as reset: the result, start all ones, end 0.
+const uint32_t kFreshStamped[8] = {0, 0xFFFFFFFFu, 0, 0,
+                                   0xFFFFFFFFu, 0xFFFFFFFFu, 0, 0};
 
 // ---- the cases ------------------------------------------------------------
 
-enum SweepForm { kByValue, kExtSymbol, kTimed, kMeasured };
+enum SweepForm { kByValue, kExtSymbol, kStamped, kMeasured };
 
 void sweep_case(SweepForm form, int dbits, uint64_t base, uint64_t count,
                 int early_exit, cudaStream_t s) {
@@ -204,10 +208,11 @@ void sweep_case(SweepForm form, int dbits, uint64_t base, uint64_t count,
   uint32_t want_hits, want_min;
   brute(b, base, count, dbits, &want_hits, &want_min);
 
-  uint32_t* out = device_words(kFreshResult, 4);
+  const int words = form == kStamped ? 8 : 4;
+  uint32_t* out =
+      device_words(form == kStamped ? kFreshStamped : kFreshResult, words);
   uint32_t* ext_dev = device_words(ext, 20);
   unsigned long long* hashed = nullptr;
-  cudaEvent_t start = nullptr, end = nullptr;
   int err = 0;
   if (form == kByValue) {
     err = sha256d_sweep_launch(ext, base, count, dbits, early_exit, out,
@@ -215,11 +220,9 @@ void sweep_case(SweepForm form, int dbits, uint64_t base, uint64_t count,
   } else if (form == kExtSymbol) {
     err = sha256d_sweep_launch_ext_symbol(ext_dev, base, count, dbits,
                                           early_exit, out, s);
-  } else if (form == kTimed) {
-    cuda_ok(cudaEventCreate(&start), "cudaEventCreate");
-    cuda_ok(cudaEventCreate(&end), "cudaEventCreate");
-    err = sha256d_sweep_launch_timed(ext, base, count, dbits, early_exit, out,
-                                     s, start, end);
+  } else if (form == kStamped) {
+    err = sha256d_sweep_launch_stamped(ext, base, count, dbits, early_exit,
+                                       out, s);
   } else {
     const unsigned long long zero = 0;
     hashed = device_words(&zero, 1);
@@ -227,24 +230,25 @@ void sweep_case(SweepForm form, int dbits, uint64_t base, uint64_t count,
                                hashed, s);
   }
   char what[160];
-  static const char* kForms[] = {"by value", "ext symbol", "timed",
+  static const char* kForms[] = {"by value", "ext symbol", "stamped",
                                  "measuring"};
   std::snprintf(what, sizeof what,
                 "sweep %s dbits %d [%llu, +%llu) early_exit %d", kForms[form],
                 dbits, static_cast<unsigned long long>(base),
                 static_cast<unsigned long long>(count), early_exit);
   if (lib_ok(err, what) && cuda_ok(cudaStreamSynchronize(s), what)) {
-    uint32_t got[4];
-    to_host(got, out, 4);
+    uint32_t got[8];
+    to_host(got, out, words);
     const bool min_ok = got[1] == want_min;
     const bool count_ok = early_exit ? ((got[0] > 0) == (want_hits > 0))
                                      : got[0] == want_hits;
     expect(min_ok && count_ok, what);
-    if (form == kTimed) {
-      float ms_elapsed = -1.0f;
-      lib_ok(sha256d_event_elapsed_ms(start, end, &ms_elapsed),
-             "sha256d_event_elapsed_ms");
-      expect(ms_elapsed >= 0.0f, "the timed sweep's elapsed time");
+    if (form == kStamped) {
+      unsigned long long stamp[2];
+      std::memcpy(stamp, got + 4, sizeof stamp);
+      expect(stamp[0] != ~0ull && stamp[1] != 0 && stamp[0] <= stamp[1],
+             "the stamped sweep's start and end stamps: both written, "
+             "start no later than end");
     }
     if (form == kMeasured && !early_exit) {
       unsigned long long n = 0;
@@ -252,8 +256,6 @@ void sweep_case(SweepForm form, int dbits, uint64_t base, uint64_t count,
       expect(n == count, "the measuring sweep hashed every nonce");
     }
   }
-  if (start != nullptr) cudaEventDestroy(start);
-  if (end != nullptr) cudaEventDestroy(end);
   cudaFree(hashed);
   cudaFree(ext_dev);
   cudaFree(out);
@@ -408,6 +410,20 @@ void query_case() {
   expect(sha256d_sweep_error_string(0) != nullptr, "error string query");
 }
 
+// The timer's tick: the kernel sees it step, by a positive amount.
+void tick_case(cudaStream_t s) {
+  unsigned long long* out = device_words<unsigned long long>(nullptr, 4);
+  if (lib_ok(sha256d_globaltimer_tick(out, 1 << 12, s),
+             "sha256d_globaltimer_tick") &&
+      cuda_ok(cudaStreamSynchronize(s), "sha256d_globaltimer_tick")) {
+    unsigned long long got[4];
+    to_host(got, out, 4);
+    expect(got[0] > 0 && got[1] > 0 && got[2] < got[3],
+           "the timer's tick: it steps while the kernel reads it");
+  }
+  cudaFree(out);
+}
+
 // One sweep into a deliberately broken result buffer; what it returns does
 // not matter, only what the tool reports.
 void poison_case(bool short_buffer, cudaStream_t s) {
@@ -458,12 +474,13 @@ int main(int argc, char** argv) {
       host::sweep_case(host::kExtSymbol, dbits, base, host::kWindow, ee, s);
     }
   }
-  host::sweep_case(host::kTimed, 16, 0, host::kWindow, 1, s);
+  host::sweep_case(host::kStamped, 16, 0, host::kWindow, 1, s);
   host::sweep_case(host::kMeasured, 16, 0, host::kWindow, 0, s);
   host::step_case(s);
   host::fused_case(false, s);
   host::fused_case(true, s);
   host::query_case();
+  host::tick_case(s);
   cudaStreamDestroy(s);
   std::printf("%s: %d failure(s)\n", host::failures ? "FAIL" : "ok",
               host::failures);

@@ -70,6 +70,27 @@
 // launch. 0xFFFFFFFF is a real nonce too: a caller tells "none" from "found
 // 0xFFFFFFFF" by count > 0.
 //
+// The stamped build (kStamp) times itself on the card, for a caller that
+// needs the sweep's device window (the traced per-block miner): its buffer
+// has four more words, two uint64 stamps of %globaltimer (nanoseconds, one
+// clock for every SM): {start, end}, reset to {all ones, 0}. Thread 0 of
+// each block takes the minimum of the timer into start when the block
+// enters; a one-thread kernel that follows the sweep on its stream
+// (sweep_end_stamp_kernel) writes the timer into end once the sweep's last
+// block has left. So end - start is the span from the first block's start
+// to the sweep's end, the launch's latency left out, and nothing is added
+// to the loop. The stamps come back in the one read-back of the result,
+// where a pair of timing events around the launch cost the host a record
+// each, a second call to read them and a pool to reuse them. The end is not
+// stamped in the sweep itself: with a stamp both before and after the loop,
+// ptxas gives the loop 64 registers instead of 63 and schedules it
+// otherwise, and on an NVIDIA H100 80GB HBM3 at 700 W every such form
+// (after a barrier, at a warp's own exit, the address kept opaque, the
+// start word passed apart, the start stamp not inlined) ran a 2^24 sweep 35
+// to 111 us slower than the plain build, where the stamped build with the
+// following kernel ran as fast as it (PERF.md; the forms are rebuilt and
+// timed by mpi_blockchain_tpu_torch/tools/stamp_variants.py).
+//
 // Extended midstate from device memory. The fused k-block miner builds each
 // block's header on the card from the previous block's digest, so the host
 // never sees the 20 ext words. An instantiation with kExtFromSymbol reads
@@ -144,6 +165,9 @@ constexpr uint32_t kIV0 = 0x6a09e667, kIV1 = 0xbb67ae85, kIV2 = 0x3c6ef372,
                    kIV3 = 0xa54ff53a, kIV4 = 0x510e527f, kIV5 = 0x9b05688c,
                    kIV6 = 0x1f83d9ab, kIV7 = 0x5be0cd19;
 
+// The stamped build's words past the four of a result: {start, end}.
+constexpr int kStampStart = 4, kStampEnd = 6;
+
 // Extended-midstate layout (ops/sha256_sched.py).
 constexpr int kExtA2 = 8, kExtA1 = 9, kExtA0 = 10;
 constexpr int kExtE2 = 11, kExtE1 = 12, kExtE0 = 13;
@@ -165,6 +189,14 @@ struct SweepArgs {
 
 // Difficulty classes, as the reference's mask branches.
 enum Mode { kAll = 0, kBelow32 = 1, kEq32 = 2, kBelow64 = 3, kEq64 = 4 };
+
+// The card's global nanosecond timer, one clock for every SM (clock64
+// counts per SM).
+__device__ __forceinline__ unsigned long long global_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
@@ -284,13 +316,18 @@ __device__ __forceinline__ bool qualifies(uint32_t h0, uint32_t h1,
 // One trip of the loop takes a slice from the cursor and hashes one nonce
 // per lane. kCountHashed is a measuring build: each warp also adds the
 // nonces of each slice it takes to *hashed, which shows how far early exit
-// overshoots the winner. kExtFromSymbol reads ext from kExtSymbol.
-template <int kMode, bool kCountHashed, bool kExtFromSymbol>
+// overshoots the winner. kExtFromSymbol reads ext from kExtSymbol. kStamp
+// is the stamped build: out has the two stamps after the result (see
+// above), and each block stamps start before the loop.
+template <int kMode, bool kCountHashed, bool kExtFromSymbol, bool kStamp>
 __global__ void __launch_bounds__(kBlock)
     sha256d_sweep_kernel(const SweepArgs args, uint32_t* __restrict__ out,
                          unsigned long long* __restrict__ hashed) {
   const unsigned lane = threadIdx.x & 31u;
   auto* const cursor = reinterpret_cast<unsigned long long*>(out + 2);
+  if (kStamp && threadIdx.x == 0)
+    atomicMin(reinterpret_cast<unsigned long long*>(out + kStampStart),
+              global_timer());
   for (;;) {
     // Everything up to the hash is uniform across the warp, so every branch
     // is taken by all 32 lanes together.
@@ -331,10 +368,40 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// The stamped build's end: one thread, launched right after the sweep on its
+// stream, so it runs once the sweep's last block has left.
+__global__ void __launch_bounds__(1)
+    sweep_end_stamp_kernel(unsigned long long* __restrict__ end) {
+  *end = global_timer();
+}
+
+// One thread reads %globaltimer `reads` times: out gets {the smallest
+// nonzero step between two reads, the number of steps, the first read, the
+// last read}. A measuring kernel: it shows the timer's tick on this card.
+__global__ void __launch_bounds__(1)
+    globaltimer_tick_kernel(unsigned long long* __restrict__ out, int reads) {
+  unsigned long long prev = global_timer();
+  const unsigned long long first = prev;
+  unsigned long long tick = ~0ull, steps = 0;
+  for (int i = 1; i < reads; ++i) {
+    const unsigned long long now = global_timer();
+    if (now != prev) {
+      tick = now - prev < tick ? now - prev : tick;
+      ++steps;
+      prev = now;
+    }
+  }
+  out[0] = steps ? tick : 0;
+  out[1] = steps;
+  out[2] = first;
+  out[3] = prev;
+}
+
 // Blocks of one instantiation that the current device holds at once (SMs
 // times resident blocks per SM). Queried once per device and kept, so a
 // launch costs no attribute or occupancy query.
-template <int kMode, bool kCountHashed, bool kExtFromSymbol>
+template <int kMode, bool kCountHashed, bool kExtFromSymbol,
+          bool kStamp = false>
 cudaError_t resident_blocks(unsigned long long* blocks) {
   static std::atomic<unsigned long long> cache[kMaxDevices];
   int device = 0;
@@ -347,7 +414,8 @@ cudaError_t resident_blocks(unsigned long long* blocks) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sha256d_sweep_kernel<kMode, kCountHashed, kExtFromSymbol>,
+        &per_sm,
+        sha256d_sweep_kernel<kMode, kCountHashed, kExtFromSymbol, kStamp>,
         kBlock, 0);
   if (err != cudaSuccess) return err;
   *blocks = static_cast<unsigned long long>(sms) * (per_sm > 0 ? per_sm : 1);
@@ -355,36 +423,38 @@ cudaError_t resident_blocks(unsigned long long* blocks) {
   return cudaSuccess;
 }
 
-template <int kMode, bool kCountHashed, bool kExtFromSymbol>
+template <int kMode, bool kCountHashed, bool kExtFromSymbol, bool kStamp>
 int launch(const SweepArgs& args, uint32_t* out, unsigned long long* hashed,
            cudaStream_t stream) {
   unsigned long long resident = 0;
   const cudaError_t err =
-      resident_blocks<kMode, kCountHashed, kExtFromSymbol>(&resident);
+      resident_blocks<kMode, kCountHashed, kExtFromSymbol, kStamp>(&resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // A warp needs at least one slice; more blocks would find the queue empty.
   const unsigned long long slices = (args.count + kSlice - 1) / kSlice;
   const unsigned long long needed = (slices + kBlock / 32 - 1) / (kBlock / 32);
   const unsigned grid =
       static_cast<unsigned>(needed < resident ? needed : resident);
-  sha256d_sweep_kernel<kMode, kCountHashed, kExtFromSymbol>
+  sha256d_sweep_kernel<kMode, kCountHashed, kExtFromSymbol, kStamp>
       <<<grid, kBlock, 0, stream>>>(args, out, hashed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kCountHashed, bool kExt>
+template <bool kCountHashed, bool kExt, bool kStamp = false>
 int launch_mode(int difficulty_bits, const SweepArgs& args, uint32_t* out,
                 unsigned long long* hashed, cudaStream_t stream) {
   const int d = difficulty_bits;
   if (d <= 0)
-    return launch<kAll, kCountHashed, kExt>(args, out, hashed, stream);
+    return launch<kAll, kCountHashed, kExt, kStamp>(args, out, hashed, stream);
   if (d < 32)
-    return launch<kBelow32, kCountHashed, kExt>(args, out, hashed, stream);
+    return launch<kBelow32, kCountHashed, kExt, kStamp>(args, out, hashed,
+                                                        stream);
   if (d == 32)
-    return launch<kEq32, kCountHashed, kExt>(args, out, hashed, stream);
+    return launch<kEq32, kCountHashed, kExt, kStamp>(args, out, hashed, stream);
   if (d < 64)
-    return launch<kBelow64, kCountHashed, kExt>(args, out, hashed, stream);
-  return launch<kEq64, kCountHashed, kExt>(args, out, hashed, stream);
+    return launch<kBelow64, kCountHashed, kExt, kStamp>(args, out, hashed,
+                                                        stream);
+  return launch<kEq64, kCountHashed, kExt, kStamp>(args, out, hashed, stream);
 }
 
 // Registers a thread of an instantiation uses, and the blocks an SM holds at
@@ -393,11 +463,13 @@ template <int kMode, bool kExt>
 cudaError_t occupancy(int* registers, int* blocks_per_sm) {
   cudaFuncAttributes attr;
   cudaError_t err =
-      cudaFuncGetAttributes(&attr, sha256d_sweep_kernel<kMode, false, kExt>);
+      cudaFuncGetAttributes(&attr,
+                            sha256d_sweep_kernel<kMode, false, kExt, false>);
   if (err != cudaSuccess) return err;
   *registers = attr.numRegs;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, sha256d_sweep_kernel<kMode, false, kExt>, kBlock, 0);
+      blocks_per_sm, sha256d_sweep_kernel<kMode, false, kExt, false>, kBlock,
+      0);
   if (err != cudaSuccess) return err;
   unsigned long long resident = 0;
   return resident_blocks<kMode, false, kExt>(&resident);
@@ -693,32 +765,39 @@ int sha256d_sweep_launch(const uint32_t* ext, unsigned long long base,
            : launch_mode<false, false>(d, args, o, n, s);
 }
 
-// The same sweep (not the measuring build) between two timing events,
-// recorded on `stream` right before and right after it in this one call:
-// once it is done, sha256d_event_elapsed_ms gives the sweep's own time on
-// the card. `start` and `end` are cudaEvent_t, created with timing on the
-// stream's device.
-int sha256d_sweep_launch_timed(const uint32_t* ext, unsigned long long base,
-                               unsigned long long count, int difficulty_bits,
-                               int early_exit, void* out, void* stream,
-                               void* start, void* end) {
+// The same sweep (not the measuring build), stamped: `out` is the stamped
+// buffer {count, min, cursor_lo, cursor_hi, start_lo, start_hi, end_lo,
+// end_hi}, 8-byte aligned and reset by the caller to {0, 0xFFFFFFFF, 0, 0,
+// 0xFFFFFFFF, 0xFFFFFFFF, 0, 0}. Enqueues the stamped build, then the
+// kernel that stamps its end; once both are done, end - start is the
+// sweep's span on the card in nanoseconds of %globaltimer. Returns the CUDA
+// error code of the launches (0 on success).
+int sha256d_sweep_launch_stamped(const uint32_t* ext, unsigned long long base,
+                                 unsigned long long count,
+                                 int difficulty_bits, int early_exit,
+                                 void* out, void* stream) {
+  if (!valid_range(base, count, difficulty_bits, out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SweepArgs args =
+      sweep_args(ext, base, count, difficulty_bits, early_exit);
+  uint32_t* o = static_cast<uint32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t before =
-      cudaEventRecord(static_cast<cudaEvent_t>(start), s);
-  if (before != cudaSuccess) return static_cast<int>(before);
-  const int err = sha256d_sweep_launch(ext, base, count, difficulty_bits,
-                                       early_exit, out, nullptr, stream);
+  const int err =
+      launch_mode<false, false, true>(difficulty_bits, args, o, nullptr, s);
   if (err != 0) return err;
-  return static_cast<int>(
-      cudaEventRecord(static_cast<cudaEvent_t>(end), s));
+  sweep_end_stamp_kernel<<<1, 1, 0, s>>>(
+      reinterpret_cast<unsigned long long*>(o + kStampEnd));
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Milliseconds between two timing events that are done, into *ms; returns
-// the CUDA error code (cudaErrorNotReady while either is still pending).
-int sha256d_event_elapsed_ms(void* start, void* end, float* ms) {
-  return static_cast<int>(
-      cudaEventElapsedTime(ms, static_cast<cudaEvent_t>(start),
-                           static_cast<cudaEvent_t>(end)));
+// Enqueues the tick kernel (globaltimer_tick_kernel) on `stream`: `out` is
+// 4 device uint64, reads >= 2. Returns the CUDA error code of the launch.
+int sha256d_globaltimer_tick(void* out, int reads, void* stream) {
+  if (reads < 2 || reinterpret_cast<uintptr_t>(out) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  globaltimer_tick_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(out), reads);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The same sweep with the 20 ext words in device memory: enqueues their

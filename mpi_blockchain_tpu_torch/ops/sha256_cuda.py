@@ -7,7 +7,10 @@ CUDA device it launches the kernel or raises; only for the CPU device does
 it run the plain PyTorch version (``sha256_torch.sweep_core_ext``).
 ``launch`` also takes the extended midstate as a CUDA tensor, for the
 instantiation that reads it from the library's ``__constant__`` symbol, as
-the fused miner's loop does (``ext_symbol_user``).
+the fused miner's loop does (``ext_symbol_user``). Inside
+``timed_launches`` a sweep runs the stamped build, which writes its own
+span on the card (``%globaltimer``) into its result buffer, read back with
+its winner (``LaunchedSweep.timing``).
 ``bound_sm_clocks_per_nonce`` gives the kernel's bound from the
 function's work: the ALU-only instructions of the compiled loop
 (``loop_census``) and the adds of the source (``source_adds``);
@@ -49,6 +52,9 @@ SLICE_NONCES = 32
 NONCES_PER_TRIP = 1
 #: int32 words of a result buffer: {count, min, cursor_lo, cursor_hi}.
 RESULT_WORDS = 4
+#: int32 words of a stamped result buffer: the result, then the stamped
+#: build's {start, end} on ``%globaltimer``, two little-endian uint64 (ns).
+STAMPED_RESULT_WORDS = RESULT_WORDS + 4
 
 #: The compile census's site of the library's builds and loads.
 COMPILE_SITE = "ops.sha256_cuda"
@@ -95,14 +101,13 @@ def bind(library: pathlib.Path) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.sha256d_sweep_launch.restype = ctypes.c_int
-    lib.sha256d_sweep_launch_timed.argtypes = [
+    lib.sha256d_sweep_launch_stamped.argtypes = [
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
-    lib.sha256d_sweep_launch_timed.restype = ctypes.c_int
-    lib.sha256d_event_elapsed_ms.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
-    lib.sha256d_event_elapsed_ms.restype = ctypes.c_int
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.sha256d_sweep_launch_stamped.restype = ctypes.c_int
+    lib.sha256d_globaltimer_tick.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.sha256d_globaltimer_tick.restype = ctypes.c_int
     lib.sha256d_sweep_launch_ext_symbol.argtypes = [
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -185,7 +190,8 @@ def kernel_errors(what: str):
         raise KernelError(f"{what} failed: {e}") from e
 
 
-def new_result(device: torch.device) -> torch.Tensor:
+def new_result(device: torch.device, stamped: bool = False
+               ) -> torch.Tensor:
     """A fresh result buffer: four int32 words, which the kernel reads as
     uint32.
 
@@ -194,17 +200,25 @@ def new_result(device: torch.device) -> torch.Tensor:
     * words 2-3: the work queue's cursor, the next slice to hand out, a
       little-endian uint64 (0), so the buffer must be 8-byte aligned.
 
+    ``stamped`` adds the stamped build's four words: its start stamp (all
+    ones, the identity of the blocks' minimum) and its end stamp (0, of
+    their maximum), each a little-endian uint64.
+
     A buffer is reset to these values before every launch (``copy_`` from
-    a fresh one), the cursor included."""
-    return torch.tensor([0, -1, 0, 0], dtype=torch.int32, device=device)
+    a fresh one), the cursor and the stamps included."""
+    words = [0, -1, 0, 0] + ([-1, -1, 0, 0] if stamped else [])
+    return torch.tensor(words, dtype=torch.int32, device=device)
 
 
 def check_result_buffer(out: torch.Tensor) -> None:
-    """Raises ValueError unless ``out`` is laid out as ``new_result``."""
-    if out.dtype != torch.int32 or out.shape != (RESULT_WORDS,) \
+    """Raises ValueError unless ``out`` is laid out as ``new_result``
+    (plain or stamped)."""
+    if out.dtype != torch.int32 or out.shape not in (
+            (RESULT_WORDS,), (STAMPED_RESULT_WORDS,)) \
             or not out.is_contiguous() or out.data_ptr() % 8:
         raise ValueError(f"out must be a contiguous, 8-byte aligned "
-                         f"({RESULT_WORDS},) int32 tensor (new_result), got "
+                         f"({RESULT_WORDS},) or ({STAMPED_RESULT_WORDS},) "
+                         f"int32 tensor (new_result), got "
                          f"{tuple(out.shape)} {out.dtype}")
 
 
@@ -245,8 +259,7 @@ def check_device_words(t: torch.Tensor, shape: tuple, device: torch.device,
 def launch(ext, base: int, count: int,
            difficulty_bits: int, out: torch.Tensor, *,
            early_exit: bool = False,
-           hashed: torch.Tensor | None = None,
-           events: tuple | None = None) -> None:
+           hashed: torch.Tensor | None = None) -> None:
     """Enqueues one sweep of [base, base + count) on the current stream of
     ``out``'s device, accumulating into ``out`` (see ``new_result``; the
     caller resets it). Does not synchronise.
@@ -260,12 +273,10 @@ def launch(ext, base: int, count: int,
     ``hashed``, a (1,) int64 tensor on the same device, selects the
     measuring build of the kernel, which adds to it the number of nonces it
     hashed (with ``early_exit``, how far the sweep ran past the winner);
-    only with ``ext`` in host memory. ``events``, a pair of timing
-    ``torch.cuda.Event`` already created on the device (recorded once), are
-    recorded on the stream right before and right after the kernel, in the
-    library's call that launches it, so the time between them is the
-    kernel's alone; only with ``ext`` in host memory and without
-    ``hashed``."""
+    only with ``ext`` in host memory. A stamped ``out``
+    (``new_result(device, stamped=True)``) selects the stamped build, which
+    writes the sweep's span on the card after its result; only with
+    ``ext`` in host memory and without ``hashed``."""
     global launches
     if out.device.type != "cuda":
         raise ValueError("out must be a CUDA tensor")
@@ -276,11 +287,10 @@ def launch(ext, base: int, count: int,
         raise ValueError("hashed must be a (1,) int64 tensor on out's "
                          "device")
     on_device = isinstance(ext, torch.Tensor)
-    if events is not None and (on_device or hashed is not None
-                               or not all(e.cuda_event for e in events)):
-        raise ValueError("events time a launch with ext in host memory, "
-                         "not the measuring build, and must be created on "
-                         "the device first")
+    stamped = out.shape[0] == STAMPED_RESULT_WORDS
+    if stamped and (on_device or hashed is not None):
+        raise ValueError("the stamped build takes ext in host memory, and "
+                         "is not the measuring build")
     if on_device:
         check_device_words(ext, (sha256_sched.EXT_WORDS,), out.device,
                             "ext")
@@ -306,14 +316,13 @@ def launch(ext, base: int, count: int,
         else:
             args = (ext.ctypes.data, base, count, int(difficulty_bits),
                     int(early_exit), out.data_ptr())
-            if events is None:
+            if stamped:
+                err = _lib().sha256d_sweep_launch_stamped(
+                    *args, stream.cuda_stream)
+            else:
                 err = _lib().sha256d_sweep_launch(
                     *args, None if hashed is None else hashed.data_ptr(),
                     stream.cuda_stream)
-            else:
-                err = _lib().sha256d_sweep_launch_timed(
-                    *args, stream.cuda_stream, events[0].cuda_event,
-                    events[1].cuda_event)
     if err != 0:
         raise cuda_error("sha256d_sweep launch", err)
     launches += 1
@@ -352,43 +361,51 @@ def resident_warps(difficulty_bits: int, device: torch.device) -> int:
     return resident_blocks(difficulty_bits, device) * threads // 32
 
 
-def read_result(out: torch.Tensor) -> tuple[int, int]:
+def read_result(out: torch.Tensor, words: int = 2) -> tuple[int, ...]:
     """(count, min_nonce) from a result buffer; synchronises on it and
-    reads back its first 8 bytes (the wait releases the interpreter lock).
+    reads back its first ``words`` words in one copy (the wait releases
+    the interpreter lock): 2, 8 bytes. ``STAMPED_RESULT_WORDS`` of a
+    stamped buffer, 32 bytes, give (count, min_nonce, start_ns, end_ns).
     A CUDA error reported there raises ``KernelError``."""
     with kernel_errors("sha256d_sweep read-back"):
-        words = out[:2].tolist()
-    count, best = (int(v) & 0xFFFFFFFF for v in words)
-    return count, best
+        got = out[:words].tolist()
+    w = [int(v) & 0xFFFFFFFF for v in got]
+    if words == STAMPED_RESULT_WORDS:
+        return w[0], w[1], w[4] | w[5] << 32, w[6] | w[7] << 32
+    return w[0], w[1]
 
 
 class _FreshBuffers(threading.local):
-    """Per thread, by device: a fresh result buffer (``new_result``) that
-    each launch's own buffer is cloned from, so that starting a sweep is a
-    copy on the stream and not an upload from the host."""
+    """Per thread, by device and form: a fresh result buffer
+    (``new_result``, plain or stamped) that each launch's own buffer is
+    cloned from, so that starting a sweep is a copy on the stream and not
+    an upload from the host."""
 
     def __init__(self):
-        self.by_device: dict[torch.device, torch.Tensor] = {}
+        self.by_key: dict[tuple, torch.Tensor] = {}
 
-    def get(self, device: torch.device) -> torch.Tensor:
-        fresh = self.by_device.get(device)
+    def get(self, device: torch.device, stamped: bool) -> torch.Tensor:
+        fresh = self.by_key.get((device, stamped))
         if fresh is None:
-            fresh = self.by_device[device] = new_result(device)
+            fresh = self.by_key[device, stamped] = new_result(device,
+                                                              stamped)
         return fresh
 
 
 _fresh_buffers = _FreshBuffers()
 
 
-def fresh_result(device: torch.device) -> torch.Tensor:
-    """A reset result buffer on a CUDA ``device``: a copy, on the current
-    stream, of this thread's fresh one (no upload from the host)."""
-    return _fresh_buffers.get(device).clone()
+def fresh_result(device: torch.device, stamped: bool = False
+                 ) -> torch.Tensor:
+    """A reset result buffer, plain or stamped, on a CUDA ``device``: a
+    copy, on the current stream, of this thread's fresh one (no upload
+    from the host)."""
+    return _fresh_buffers.get(device, stamped).clone()
 
 
 class _Timing(threading.local):
-    """Per thread: whether ``sweep_launch`` brackets sweeps with timing
-    events (``timed_launches``)."""
+    """Per thread: whether ``sweep_launch`` launches the stamped build
+    (``timed_launches``)."""
     on = False
 
 
@@ -397,11 +414,12 @@ _timing = _Timing()
 
 class timed_launches:
     """``with timed_launches():`` on this thread, ``sweep_launch``
-    brackets each sweep with timing events, so ``LaunchedSweep.timing``
-    gives its time on the card; outside it a sweep carries one plain
-    completion event. Only a caller that reads the timing asks for it (the
-    pipelined ``Miner`` with its telemetry on), so no other launch holds a
-    pair. ``on=False`` turns it off inside."""
+    launches the stamped build, so ``LaunchedSweep.timing`` gives the
+    sweep's time on the card from the stamps its read-back brings; outside
+    it a sweep writes and reads back its result alone. Either carries one
+    plain completion event. Only a caller that reads the timing asks for
+    it (the pipelined ``Miner`` with its telemetry on). ``on=False`` turns
+    it off inside."""
 
     __slots__ = ("on", "prev")
 
@@ -420,86 +438,67 @@ def timing_requested() -> bool:
     return _timing.on
 
 
-class _TimingPairs:
-    """Per device, the timing event pairs of sweeps that are gone. Making
-    and destroying a timing event costs the host several times what
-    recording one does, so a timed launch takes a pair from here (or makes
-    one) and its ``LaunchedSweep`` gives the pair back when nothing holds
-    the sweep any more: no sweep reads another's events, and the pool
-    holds at most as many pairs as timed sweeps were alive at once. The
-    lock is re-entrant, since the garbage collector may free a sweep
-    inside ``give``."""
-
-    def __init__(self):
-        self.lock = threading.RLock()
-        self.free: dict[torch.device, list] = {}
-
-    def take(self, device: torch.device) -> tuple:
-        """A pair of timing events created on ``device``."""
-        with self.lock:
-            free = self.free.get(device)
-            if free:
-                return free.pop()
-        pair = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        stream = torch.cuda.current_stream(device)
-        for event in pair:
-            event.record(stream)     # creates it on the device
-        return pair
-
-    def give(self, device: torch.device, pair: tuple) -> None:
-        with self.lock:
-            self.free.setdefault(device, []).append(pair)
+_read_streams: dict[torch.device, torch.cuda.Stream] = {}
 
 
-_timing_pairs = _TimingPairs()
+def _read_stream(device: torch.device) -> torch.cuda.Stream:
+    """A stream of its own on ``device`` for reading back a sweep that is
+    done: a copy there does not queue behind sweeps launched after it."""
+    stream = _read_streams.get(device)
+    if stream is None:
+        stream = _read_streams.setdefault(device, torch.cuda.Stream(device))
+    return stream
 
 
 class LaunchedSweep:
     """A sweep on the card: its result buffer, the event recorded on its
-    stream right after it, and, when it was launched inside
-    ``timed_launches``, a timing event right before it and the host's
-    ``time.perf_counter()`` when it was launched (``timed``). ``ready``
-    says, without blocking, whether the sweep is done; ``result`` waits
-    for it and gives (count, min_nonce); ``timing`` gives (launched, its
-    seconds on the card) of a timed sweep that is done. A CUDA error
-    reported at any of them raises ``KernelError``."""
+    stream right after it and, when it was launched inside
+    ``timed_launches`` (``timed``), the host's ``time.perf_counter()`` when
+    it was launched, its buffer stamped. ``ready`` says, without blocking,
+    whether the sweep is done; ``result`` waits for it and gives (count,
+    min_nonce), reading back the stamps of a timed sweep in the same copy;
+    ``timing`` gives (launched, its seconds on the card) of a timed sweep
+    that is done. A CUDA error reported at any of them raises
+    ``KernelError``."""
 
-    __slots__ = ("out", "event", "start", "launched", "device")
+    __slots__ = ("out", "event", "launched", "device", "timed", "words")
 
     def __init__(self, out: torch.Tensor, event: torch.cuda.Event,
-                 start: torch.cuda.Event | None = None,
                  launched: float = 0.0):
-        self.out, self.event, self.start = out, event, start
-        self.launched, self.device = launched, out.device
-
-    def __del__(self, _give=_timing_pairs.give):
-        if self.start is not None:
-            _give(self.device, (self.start, self.event))
-
-    @property
-    def timed(self) -> bool:
-        return self.start is not None
+        self.out, self.event, self.launched = out, event, launched
+        self.device = out.device
+        self.timed = out.shape[0] == STAMPED_RESULT_WORDS
+        self.words: tuple[int, ...] | None = None
 
     def ready(self) -> bool:
         with kernel_errors("sha256d_sweep completion query"):
             return self.event.query()
 
+    def _read(self) -> tuple[int, ...]:
+        if self.words is None:
+            self.words = read_result(
+                self.out, STAMPED_RESULT_WORDS if self.timed else 2)
+        return self.words
+
     def result(self) -> tuple[int, int]:
-        return read_result(self.out)
+        return self._read()[:2]
 
     def timing(self) -> tuple[float, float]:
-        """Only once ``ready`` said True or ``result`` returned: the end
-        event is then done, and reading it does not wait."""
-        if self.start is None:
-            raise ValueError("the sweep was launched without timing "
-                             "events (see timed_launches)")
-        ms = ctypes.c_float()
-        err = _lib().sha256d_event_elapsed_ms(
-            self.start.cuda_event, self.event.cuda_event, ctypes.byref(ms))
-        if err != 0:
-            raise cuda_error("sha256d_sweep timing", err)
-        return self.launched, ms.value / 1e3
+        """Only once ``ready`` said True or ``result`` returned. After
+        ``result`` the stamps are on the host already; before it (a
+        discarded sweep) they are read back here, on a stream of their
+        own, so the copy waits for nothing launched after the sweep."""
+        if not self.timed:
+            raise ValueError("the sweep was launched without its stamps "
+                             "(see timed_launches)")
+        if self.words is None and self.out.is_cuda:
+            with torch.cuda.stream(_read_stream(self.device)):
+                self._read()
+        _, _, start, end = self._read()
+        if start > end:
+            raise KernelError(f"sha256d_sweep stamps not written: start "
+                              f"{start:#x}, end {end:#x}")
+        return self.launched, (end - start) / 1e9
 
 
 def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
@@ -509,8 +508,8 @@ def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
     a result buffer of its own and returns it as a ``LaunchedSweep``,
     without waiting: a sweep on the device while the host goes on;
     ``sweep`` is both at once. Inside ``timed_launches`` a sweep of at
-    least one nonce is bracketed by timing events, so its time on the card
-    is known once it is done (the pipelined ``Miner``'s device window)."""
+    least one nonce runs the stamped build, so its time on the card comes
+    back with its result (the pipelined ``Miner``'s device window)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ConfigError(f"sweep_launch runs on a CUDA device, not "
@@ -520,19 +519,15 @@ def sweep_launch(ext, base: int, count: int, difficulty_bits: int, *,
     ext_host = np.asarray(sha256_torch.ext_words(ext), dtype=np.uint32)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    stamped = _timing.on and count > 0
     with kernel_errors("sha256d_sweep launch"):
-        out = fresh_result(device)
-        if not _timing.on or count <= 0:
-            launch(ext_host, base, count, difficulty_bits, out,
-                   early_exit=early_exit)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
-            return LaunchedSweep(out, event)
-        start, event = _timing_pairs.take(device)
-        launched = time.perf_counter()
+        out = fresh_result(device, stamped)
+        launched = time.perf_counter() if stamped else 0.0
         launch(ext_host, base, count, difficulty_bits, out,
-               early_exit=early_exit, events=(start, event))
-    return LaunchedSweep(out, event, start, launched)
+               early_exit=early_exit)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+    return LaunchedSweep(out, event, launched)
 
 
 def sweep(ext, base: int, count: int, difficulty_bits: int, *,
@@ -587,12 +582,13 @@ def difficulty_class(difficulty_bits: int) -> int:
         3 if d < 64 else 4
 
 
-def kernel_symbol(difficulty_bits: int, count_hashed: bool = False) -> str:
+def kernel_symbol(difficulty_bits: int, count_hashed: bool = False,
+                  stamped: bool = False) -> str:
     """The mangled-name stem of ``sha256d_sweep_kernel<kMode, kCountHashed,
-    false>`` (ext by value) serving ``difficulty_bits``, built from the
-    template's parameters."""
+    false, kStamp>`` (ext by value) serving ``difficulty_bits``, built from
+    the template's parameters."""
     return (f"sha256d_sweep_kernelILi{difficulty_class(difficulty_bits)}"
-            f"ELb{int(count_hashed)}ELb0E")
+            f"ELb{int(count_hashed)}ELb0ELb{int(stamped)}E")
 
 
 def disassemble(library: pathlib.Path | None = None) -> str:
@@ -661,13 +657,14 @@ def function_census(sass: str, name: str) -> dict[str, int]:
     return _by_opcode(op for _, op, _ in _instructions(sass, name))
 
 
-def loop_census(sass: str, difficulty_bits: int) -> dict[str, int]:
+def loop_census(sass: str, difficulty_bits: int,
+                stamped: bool = False) -> dict[str, int]:
     """Instructions by opcode in the main loop of the production kernel
-    serving ``difficulty_bits``, from ``cuobjdump -sass`` text. The loop
-    is the span of the longest backward branch; one trip of it hashes
-    ``NONCES_PER_TRIP`` nonces per thread, and takes one slice from the
-    work queue."""
-    name = kernel_symbol(difficulty_bits)
+    (or its stamped build) serving ``difficulty_bits``, from ``cuobjdump
+    -sass`` text. The loop is the span of the longest backward branch; one
+    trip of it hashes ``NONCES_PER_TRIP`` nonces per thread, and takes one
+    slice from the work queue."""
+    name = kernel_symbol(difficulty_bits, stamped=stamped)
     insts = _instructions(sass, name)
     back = []
     for addr, op, operands in insts:

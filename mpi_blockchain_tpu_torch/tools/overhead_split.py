@@ -12,29 +12,36 @@ clock, and splits each round into:
 
 - ``pre``: the emits before the launch call (trace context, dispatch
   record, segments, span);
-- ``launch``: the launch call (with its timing event pair when timed);
-- ``wait``: from the launch's return to the read-back's;
-- ``timing``: reading the timing events (timed sweeps only);
+- ``launch``: the launch call (the stamped build when timed);
+- ``wait``: from the launch's return to the read-back's (a timed sweep's
+  read-back brings its stamps in the same copy);
+- ``timing``: the window from the stamps, on the host (timed sweeps
+  only);
 - ``post``: the emits after the sweep (counters, heartbeat, skew span,
   compile scope, watchdog step).
 
 It pairs, each against an off round, three "on" variants: ``full`` (the
-audit: emits on, a timed sweep), ``emits`` (emits on, a sweep with its one
-plain event) and ``timed`` (emits off, a timed sweep). It also times the
+audit: emits on, a timed sweep), ``emits`` (emits on, a plain sweep) and
+``timed`` (emits off, a timed sweep). It also times the
 emit pattern alone in a hot loop (a sweep that does nothing), on and off,
 and, in ``pieces``, each emit of the round on its own: the round's body
 written out with a stamp between emits (``_stamped_round``, which follows
 ``_instrumented_round``), in the same pairs, each piece's median on and
 off (µs) after a real sweep and in the hot loop.
 
+``globaltimer_tick`` reads the card's ``%globaltimer``, the clock of the
+stamped build's window, in a loop on one thread and gives its tick.
+
 Prints one line for each variant, and as the last line one JSON object:
 for each variant the median per-pair delta (µs and % of the off round)
 and each segment's median on and off (µs), the hot loop's median on and
-off (µs), the pieces, and the card's name and power limit.
+off (µs), the pieces, the timer's tick, and the card's name and power
+limit.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -48,8 +55,8 @@ VARIANTS = {"full": (True, True), "emits": (True, False),
 
 def _stamped_sweep(device: str, stamps: dict, timed_override: list):
     """The audit's sweep on ``device`` with host stamps around its launch,
-    read-back and timing read; ``timed_override[0]``, when not None,
-    decides the timing events instead of the telemetry switch."""
+    read-back and window; ``timed_override[0]``, when not None, decides
+    whether the sweep is timed instead of the telemetry switch."""
     import torch
 
     from .. import core
@@ -140,6 +147,29 @@ def split(variant: str, seconds: float, reps: int, chunk: int,
         "off": {s: round(statistics.median(r[s] for r in off_rounds), 2)
                 for s in SEGMENTS},
     }
+
+
+@contextlib.contextmanager
+def _watchdog_armed():
+    """Arms chainwatch, as the audit does, for the rounds inside; disarms
+    only what it armed."""
+    from .. import chainwatch
+
+    was_armed = chainwatch.installed()
+    if not was_armed:
+        chainwatch.install()
+    try:
+        yield
+    finally:
+        if not was_armed:
+            chainwatch.uninstall()
+
+
+def armed_split(variant: str, seconds: float, reps: int, chunk: int,
+                device: str) -> dict:
+    """``split`` with the watchdog armed, as the audit prices the round."""
+    with _watchdog_armed():
+        return split(variant, seconds, reps, chunk, device)
 
 
 def hot_loop(rounds: int = 20000) -> dict:
@@ -265,6 +295,32 @@ def pieces(seconds: float, chunk: int, device: str) -> dict:
     return out
 
 
+def globaltimer_tick(device, reads: int = 1 << 16) -> dict:
+    """The tick of the card's ``%globaltimer``: one thread reads it
+    ``reads`` times (the library's ``sha256d_globaltimer_tick``).
+    ``tick_ns`` is the smallest step it saw, ``mean_step_ns`` the mean of
+    its steps, ``steps`` their number and ``span_ns`` the time the reads
+    took."""
+    import torch
+
+    from ..ops import sha256_cuda
+
+    if reads < 2:
+        raise ValueError(f"reads must be >= 2, got {reads}")
+    device = torch.device(device)
+    out = torch.zeros(4, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = sha256_cuda.library().sha256d_globaltimer_tick(
+            out.data_ptr(), int(reads),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise sha256_cuda.cuda_error("the timer's tick", err)
+    tick, steps, first, last = out.tolist()
+    return {"tick_ns": tick, "steps": steps, "span_ns": last - first,
+            "mean_step_ns": (last - first) / steps if steps else None,
+            "reads": reads}
+
+
 def card() -> str:
     try:
         return subprocess.run(
@@ -286,26 +342,19 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    from .. import chainwatch
-
     if not torch.cuda.is_available():
         print("overhead_split: no CUDA device", file=sys.stderr)
         return 2
     chunk = 1 << args.chunk_pow2
     sweep = _stamped_sweep(args.device, {}, [None])
     sweep(0, chunk)                   # the kernel library built and loaded
-    was_armed = chainwatch.installed()
-    if not was_armed:
-        chainwatch.install()
-    try:
+    with _watchdog_armed():
         result = {v: split(v, args.seconds, args.reps, chunk, args.device)
                   for v in VARIANTS}
         result["hot_loop_us"] = hot_loop()
         result["pieces_us_on_off"] = pieces(args.seconds, chunk,
                                             args.device)
-    finally:
-        if not was_armed:
-            chainwatch.uninstall()
+    result["globaltimer"] = globaltimer_tick(args.device)
     for v in VARIANTS:
         print(f"{v}: {json.dumps(result[v])}")
     result["card"] = card()

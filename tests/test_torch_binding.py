@@ -113,7 +113,7 @@ def test_every_exported_function_is_declared_with_matching_types(bound):
     funcs = exported_functions(sha256_cuda.SOURCE.read_text())
     assert set(funcs) == {
         "sha256d_sweep_launch", "sha256d_sweep_launch_ext_symbol",
-        "sha256d_sweep_launch_timed", "sha256d_event_elapsed_ms",
+        "sha256d_sweep_launch_stamped", "sha256d_globaltimer_tick",
         "sha256d_block_step_launch", "sha256d_block_step_repeat",
         "sha256d_fused_enqueue", "sha256d_sweep_occupancy",
         "sha256d_sweep_resident_blocks", "sha256d_sweep_block_threads",

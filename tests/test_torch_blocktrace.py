@@ -331,9 +331,9 @@ def test_overhead_cli_prints_the_payload_and_refuses_a_missing_card(
                          ids=["instrumented", "off"])
 def test_the_card_audit_round_prices_the_timing_events(monkeypatch,
                                                        instrumented):
-    """On the card the audit's instrumented half launches its sweep with
-    timing events and reads them back, as the pipelined ``Miner`` does;
-    the off half launches it with its one plain event."""
+    """On the card the audit's instrumented half launches the stamped
+    sweep and reads its window, as the pipelined ``Miner`` does; the off
+    half launches the plain sweep and reads no window."""
     from mpi_blockchain_tpu_torch.blocktrace import overhead
     from mpi_blockchain_tpu_torch.ops import sha256_cuda
 

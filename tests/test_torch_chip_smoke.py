@@ -569,14 +569,14 @@ def test_library_bracket_times_the_librarys_call_alone():
     events = []
     with chip_smoke.timed_library_calls(lib, events, log.event):
         assert lib.sha256d_sweep_launch(1, 2) == 7
-        assert lib.sha256d_sweep_launch_timed(3) == 7
+        assert lib.sha256d_sweep_launch_stamped(3) == 7
         assert lib.sha256d_block_step_launch(4) == 7
     # Each sweep entry between its own pair; the step is not a sweep.
     assert log.calls == [
         ("new", 0), ("new", 1), ("record", 0),
         ("sha256d_sweep_launch", (1, 2)), ("record", 1),
         ("new", 2), ("new", 3), ("record", 2),
-        ("sha256d_sweep_launch_timed", (3,)), ("record", 3),
+        ("sha256d_sweep_launch_stamped", (3,)), ("record", 3),
         ("step", (4,))]
     assert len(events) == 2
     assert vars(lib) == saved

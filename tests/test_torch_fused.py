@@ -411,7 +411,7 @@ _SASS_STEP = """
         /*0040*/                   SHF.R.W.U32.HI R8, R7, 0x7, R7 ;
         /*0050*/                   EXIT ;
         /*0060*/                   BRA 0x60 ;
-        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0ELb1EEEvNS_9SweepArgsEPjPy
+        Function : _ZN12_GLOBAL__N_120sha256d_sweep_kernelILi1ELb0ELb1ELb0EEEvNS_9SweepArgsEPjPy
         /*0000*/                   SHF.R.U32.HI R2, RZ, 0x3, R0 ;
 """
 

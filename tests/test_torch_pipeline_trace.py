@@ -469,8 +469,8 @@ def test_card_window_reconstruction_on_known_launches():
 
 
 class _FakeSweep:
-    """A sweep on a fake card: launched now, ``device_s`` long, with timing
-    events when its launch asked for them (``timed``, as
+    """A sweep on a fake card: launched now, ``device_s`` long, stamped
+    when its launch asked for it (``timed``, as
     ``sha256_cuda.sweep_launch`` does); ``done`` False keeps it on the
     card until its result is read, and ``fail`` is what asking about it
     raises."""
@@ -628,7 +628,7 @@ def test_telemetry_off_reads_no_card_timing():
                               backend="cpu"), backend=card, pipeline=True)
     miner.mine_chain()
     assert pipeline.profiler().records() == []
-    # The off driver launches no timing events and reads none.
+    # The off driver launches no stamped sweep and reads no window.
     assert card.sweeps and not any(s.timed for s in card.sweeps)
     assert sum(s.reads for s in card.sweeps) == 0
 
@@ -655,42 +655,6 @@ def test_timed_launches_is_per_thread_and_restores():
             seen.append(pool.submit(sha256_cuda.timing_requested).result())
     seen.append(sha256_cuda.timing_requested())
     assert seen == [False, True, False, False]
-
-
-def test_a_dropped_timed_sweep_gives_its_event_pair_back():
-    """A timed sweep's pair returns to the pool only when nothing holds
-    the sweep, and the next timed launch on that device takes it."""
-    pool = sha256_cuda._TimingPairs()
-    device = torch.device("cpu")
-    start, end = object(), object()
-    sweep = sha256_cuda.LaunchedSweep(torch.zeros(4, dtype=torch.int32),
-                                      end, start, launched=1.0)
-    assert sweep.timed and sweep.device == device
-    sweep.__del__(_give=pool.give)
-    assert pool.take(device) == (start, end)
-    # The module's own pool never sees these stand-ins.
-    sweep.start = None
-    del sweep
-    assert device not in sha256_cuda._timing_pairs.free
-    plain = sha256_cuda.LaunchedSweep(torch.zeros(4, dtype=torch.int32),
-                                      end)
-    assert not plain.timed
-    plain.__del__(_give=pool.give)
-    assert pool.free == {device: []}
-
-
-def test_the_pool_lends_each_pair_to_one_sweep_at_a_time():
-    pool = sha256_cuda._TimingPairs()
-    device = torch.device("cpu")
-    pairs = [(object(), object()) for _ in range(3)]
-    for pair in pairs:
-        pool.give(device, pair)
-    taken = [pool.take(device) for _ in range(3)]
-    assert sorted(map(id, taken)) == sorted(map(id, pairs))
-    assert pool.free[device] == []
-    # Another device has its own pairs.
-    pool.give(torch.device("cuda", 1), pairs[0])
-    assert pool.free[device] == []
 
 
 class _TwoWindows(Miner):

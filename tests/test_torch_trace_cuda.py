@@ -1,5 +1,5 @@
-"""Per-block tracing on the card: the sweep's timing events, the pipelined
-``Miner``'s device windows taken from them, and the overhead audit.
+"""Per-block tracing on the card: the stamped sweep's window, the pipelined
+``Miner``'s device windows taken from it, and the overhead audit.
 
 Every test needs a CUDA device (``cuda`` marker) and skips without one.
 This file imports no jax, so it also runs on a machine with the card and
@@ -33,48 +33,58 @@ def _card():
 
 @pytest.mark.cuda
 def test_a_launched_sweep_times_itself_on_the_card():
+    """Inside ``timed_launches`` the sweep is the stamped build: its
+    read-back brings the stamps, and its window lies inside CUDA events
+    recorded around its launch."""
     device = _card()
     ext = extend_midstate(*core.header_midstate(bytes(range(80))))
+    before = torch.cuda.Event(enable_timing=True)
+    after = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    before.record()
     with sha256_cuda.timed_launches():
         launched = sha256_cuda.sweep_launch(ext, 0, 1 << 22, 64,
                                             device=device)
+    after.record()
     count, best = launched.result()
     assert (count, best) == (0, 0xFFFFFFFF)
-    assert launched.timed
+    assert launched.timed and len(launched.out) == 8
     t, seconds = launched.timing()
     assert t > 0 and 0 < seconds < 1.0
+    assert seconds * 1e3 <= before.elapsed_time(after)
     assert launched.ready()
-    # Outside timed_launches a sweep carries one plain event.
+    # Outside timed_launches a sweep is the plain build, four words.
     plain = sha256_cuda.sweep_launch(ext, 0, 1 << 22, 64, device=device)
     assert plain.result() == (0, 0xFFFFFFFF)
-    assert plain.ready() and not plain.timed
+    assert plain.ready() and not plain.timed and len(plain.out) == 4
     with pytest.raises(ValueError, match="timed_launches"):
         plain.timing()
-    # An empty sweep launches nothing and carries no timing.
+    # An empty sweep launches nothing and carries no window.
     with sha256_cuda.timed_launches():
         empty = sha256_cuda.sweep_launch(ext, 0, 0, 64, device=device)
     assert empty.result() == (0, 0xFFFFFFFF) and not empty.timed
 
 
 @pytest.mark.cuda
-def test_timing_pairs_are_reused_and_read_their_own_sweep():
-    """A dropped timed sweep's pair times the next one; each reads its
-    own sweep (a longer sweep reads longer)."""
+def test_stamped_sweeps_read_their_own_window():
+    """Each stamped sweep reads its own window (a longer sweep reads
+    longer), and one read before its result, once it is done, does not
+    wait for a sweep launched after it (past the first such read of the
+    process, which makes the stream it reads on)."""
     device = _card()
     ext = extend_midstate(*core.header_midstate(bytes(range(80))))
-    pool = sha256_cuda._timing_pairs
     with sha256_cuda.timed_launches():
+        first = sha256_cuda.sweep_launch(ext, 0, 1 << 16, 64, device=device)
+        torch.cuda.synchronize()
+        assert first.ready() and first.timing()[1] > 0
         short = sha256_cuda.sweep_launch(ext, 0, 1 << 16, 64, device=device)
-        short.result()
-        pair = (short.start, short.event)
-        del short
-        assert pool.free[torch.device(
-            "cuda", torch.cuda.current_device())][-1] == pair
-        long = sha256_cuda.sweep_launch(ext, 0, 1 << 24, 64, device=device)
-        assert (long.start, long.event) == pair
-        again = sha256_cuda.sweep_launch(ext, 0, 1 << 16, 64, device=device)
-    assert long.result() == again.result() == (0, 0xFFFFFFFF)
-    assert long.timing()[1] > 10 * again.timing()[1] > 0
+        torch.cuda.synchronize()
+        long = sha256_cuda.sweep_launch(ext, 0, 1 << 30, 64, device=device)
+    assert short.ready() and not long.ready()
+    short_s = short.timing()[1]
+    assert not long.ready()
+    assert long.result() == short.result() == (0, 0xFFFFFFFF)
+    assert long.timing()[1] > 1000 * short_s > 0
 
 
 @pytest.mark.cuda

@@ -35,15 +35,15 @@ More than one miner (the reference's ``('miners',)`` mesh), in two forms:
   round is a ``skew_span(site="mesh.sweep")`` (``meshprof``), as the
   reference's sharded round is.
 
-Spans: ``backend.cuda.dispatch`` covers putting the search on the card
-(the per-template precompute and the launch), the counterpart of
-``backend.tpu.dispatch``, which there also covers the wait for the
-device's value; here the wait is the consumer's (``miner.sweep``).
-``backend.cuda.host_tail`` covers the host's share once the device's
-result is back (the reference's accounting and the winner's digest), the
-counterpart of ``backend.tpu.host_tail``, the reference's host share of a
-search (there the C++ tail past the last whole round, which the one launch
-here leaves to the kernel).
+Spans: ``backend.cuda.dispatch`` covers putting the search on the card, the
+counterpart of ``backend.tpu.dispatch`` (which there also covers the wait
+for the device's value; here the wait is the consumer's, ``miner.sweep``),
+split in two spans of the port's own: ``backend.cuda.midstate``, the host's
+per-template precompute, and ``backend.cuda.launch``.
+``backend.cuda.host_tail`` covers the host's share once the device's result
+is back (the reference's accounting and the winner's digest), the
+counterpart of ``backend.tpu.host_tail`` (there the C++ tail past the last
+whole round, which the one launch here leaves to the kernel).
 
 The ``backend.cuda.dispatch`` fault site sits before the launch:
 ``raise`` / ``hang`` fire before any device work, ``corrupt`` / ``partial``
@@ -198,28 +198,28 @@ class CudaBackend(MinerBackend):
 
     def launch(self, header80: bytes, difficulty_bits: int,
                start_nonce: int = 0, max_count: int = NONCE_SPACE):
-        """Starts the search and returns the function that finishes it.
-        With the CUDA kernel the sweep (in a world of processes, this
-        rank's slice of the first round) is on the device when this
-        returns, the finish waits for its 8-byte result, and the finish
-        carries ``ready`` (see ``_start``) and, when the search is that
-        one sweep, ``sweep``; with the plain version the finish does all
-        the work."""
+        """Starts the search and returns the function that finishes it. With
+        the CUDA kernel the sweep (in a world of processes, this rank's slice
+        of the first round) is on the device when this returns, the finish
+        waits for its 8-byte result and carries ``ready`` (see ``_start``) and,
+        when the search is that one sweep, ``sweep``; with the plain version
+        the finish does all the work."""
         # Fault-injection hook: raise/hang fire before any device work,
         # corrupt/partial damage the finished result.
         fault = injection.check("backend.cuda.dispatch",
                                 difficulty=difficulty_bits)
         end = min(start_nonce + max_count, NONCE_SPACE)
         with span("backend.cuda.dispatch", difficulty=difficulty_bits):
-            # Per-template precompute on the host, once per search.
-            ext = (extend_midstate(*core.header_midstate(header80))
-                   if start_nonce < end else None)
-            if self.group is None:
-                read = self._start(ext, start_nonce, end - start_nonce,
-                                   difficulty_bits)
-            else:
-                read = self._start_world(ext, start_nonce, end,
-                                         difficulty_bits)
+            with span("backend.cuda.midstate"):
+                ext = (extend_midstate(*core.header_midstate(header80))
+                       if start_nonce < end else None)
+            with span("backend.cuda.launch"):
+                if self.group is None:
+                    read = self._start(ext, start_nonce, end - start_nonce,
+                                       difficulty_bits)
+                else:
+                    read = self._start_world(ext, start_nonce, end,
+                                             difficulty_bits)
 
         def finish() -> SearchResult:
             count, best = read()

@@ -63,11 +63,11 @@ and its records carry its trace stamp; a recovery bail-out strips the
 block identity of the calls it abandons (``strip_block_identity``); and
 ``observe_batch_metrics`` observes the span's blocks after the
 ``on_progress`` seam. The first use of each k-block program is a compile
-in the ``dispatchwatch`` census (site ``fused``). The spans are:
-``fused.dispatch`` around the enqueue of a k-block call, ``miner.append``
-around each C++ append. The recovery search goes through
-``backend_from_config``, the resilient backend: retries, host
-re-validation and the step-down ladder, as in the reference.
+in the ``dispatchwatch`` census (site ``fused``). Spans: ``fused.inputs``,
+``fused.dispatch`` and ``fused.validate`` around a call's inputs, enqueue
+and blocks, ``miner.append`` around each C++ append, ``blocktrace.observe``
+around a span's observation. The recovery search goes through the resilient
+backend (``backend_from_config``) as the reference's: retries, step-down.
 """
 from __future__ import annotations
 
@@ -414,11 +414,11 @@ class FusedMiner:
                     on_progress(self.node.height)
             if mined:
                 # One grouping pass over the span's own records: a record
-                # a call, at most one more for a recovery, plus the
-                # checkpoint's.
-                observe_batch_metrics(
-                    [start + j + 1 for j in range(mined)],
-                    profiler().records(tail=mined + 8))
+                # a call, one more for a recovery, the checkpoint's.
+                with span("blocktrace.observe"):
+                    observe_batch_metrics(
+                        [start + j + 1 for j in range(mined)],
+                        profiler().records(tail=mined + 8))
 
     def _to_device(self, words: np.ndarray) -> torch.Tensor:
         """uint32 words as a tensor on the run's device; to a card through a
@@ -435,11 +435,10 @@ class FusedMiner:
         queue with no host round trip between them (in a world, call i + 1
         starts after call i was waited for, before its validation).
 
-        Returns the number of blocks appended: short only when a block
-        fails C++ validation. That height is then re-mined through the
-        extra-nonce rollover (or diagnosed as a kernel bug), the calls
-        still in flight are dropped, and the caller's loop starts again
-        from the new tip."""
+        Returns the number of blocks appended, short only when a block fails
+        C++ validation: that height is then re-mined through the extra-nonce
+        rollover (or diagnosed as a kernel bug), the calls in flight are
+        dropped, and the caller's loop starts again from the new tip."""
         start = self.node.height
         prev = self._to_device(_words_be(self.node.tip_hash))
         batches: collections.deque[_Batch] = collections.deque()
@@ -450,10 +449,11 @@ class FusedMiner:
             k = min(remaining, self.blocks_per_call)
             prec = profiler().dispatch(kind="fused", height=height, k=k)
             with prec.segment("enqueue"):
-                payloads = [self.config.payload(height + j + 1)
-                            for j in range(k)]
-                data = np.stack([_words_be(core.sha256d(p))
-                                 for p in payloads])
+                with span("fused.inputs", k=k, height=height):
+                    payloads = [self.config.payload(height + j + 1)
+                                for j in range(k)]
+                    data = np.stack([_words_be(core.sha256d(p))
+                                     for p in payloads])
                 with span("fused.dispatch", k=k, height=height):
                     nonces, prev = self._fn(k)(prev, self._to_device(data),
                                                height)
@@ -476,34 +476,36 @@ class FusedMiner:
             prec.add_segment("device", batch.t_issue, prec.now())
             if remaining > 0:
                 dispatch_one()
-            for j, payload in enumerate(batch.payloads):
-                # Each block's frame: its validate and append segments in
-                # the call's record stay its own in the critical path, and
-                # its records carry its trace stamp.
-                with trace_block(batch.height + j + 1):
-                    with prec.segment("validate"):
-                        cand = self.node.make_candidate(payload)
-                        winner = core.set_nonce(cand, nonces[j])
-                    with span("miner.append", height=batch.height + j + 1), \
-                            prec.segment("append"):
-                        accepted = self.node.submit(winner)
-                    if not accepted:
-                        # The calls still in flight mined on a tip that is
-                        # now wrong; their results are dropped. Their
-                        # heights will be mined again, so their records
-                        # lose the block identity (this call keeps the j
-                        # blocks it appended, and its exact per-block
-                        # segments).
-                        strip_block_identity(prec.record, keep_k=j)
-                        for stale in batches:
-                            strip_block_identity(stale.prec.record)
-                        self._recover_block(batch.height + j + 1, nonces[j])
-                        return self.node.height - start
-                    self._log({"event": "block_mined",
-                               "backend": "cuda-fused",
-                               "height": batch.height + j + 1,
-                               "nonce": nonces[j],
-                               "hash": self.node.tip_hash.hex()})
+            with span("fused.validate", height=batch.height,
+                      k=len(batch.payloads)):
+                for j, payload in enumerate(batch.payloads):
+                    h = batch.height + j + 1
+                    # Each block's frame: its validate and append segments
+                    # in the call's record stay its own in the critical
+                    # path, and its records carry its trace stamp.
+                    with trace_block(h):
+                        with prec.segment("validate"):
+                            cand = self.node.make_candidate(payload)
+                            winner = core.set_nonce(cand, nonces[j])
+                        with span("miner.append", height=h), \
+                                prec.segment("append"):
+                            accepted = self.node.submit(winner)
+                        if not accepted:
+                            # The calls still in flight mined on a tip that
+                            # is now wrong; their results are dropped.
+                            # Their heights will be mined again, so their
+                            # records lose the block identity (this call
+                            # keeps the j blocks it appended, and its exact
+                            # per-block segments).
+                            strip_block_identity(prec.record, keep_k=j)
+                            for stale in batches:
+                                strip_block_identity(stale.prec.record)
+                            self._recover_block(h, nonces[j])
+                            return self.node.height - start
+                        self._log({"event": "block_mined",
+                                   "backend": "cuda-fused", "height": h,
+                                   "nonce": nonces[j],
+                                   "hash": self.node.tip_hash.hex()})
         return self.node.height - start
 
     def _recover_block(self, height: int, device_nonce: int) -> None:

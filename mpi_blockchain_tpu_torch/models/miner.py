@@ -5,8 +5,7 @@ miner_backend plugin boundary. Two chain drivers share the per-sweep
 semantics:
 
 * ``mine_block``, the sequential oracle: one sweep at a time, host work
-  strictly between sweeps. Every other driver must match it byte for
-  byte.
+  strictly between sweeps. Every other driver must match it byte for byte.
 * ``mine_chain`` (pipeline on, the default), the double-buffered driver:
   sweep N+1 is issued through the backend's ``search_async`` seam on the
   assumption that sweep N has no winner, and on a winner the next block's
@@ -28,19 +27,21 @@ consumed sweep is bounded by ``MPIBT_DISPATCH_TIMEOUT``, as in the
 reference: a sweep wedged on the card fails the run loudly.
 
 Both drivers keep the reference's telemetry at the reference's points:
-``mining_rounds_total`` and ``hashes_tried_total`` per consumed sweep,
-the ``miner_heartbeat`` gauge stamped after every sweep and every append
-(so a long block does not read as a stalled miner), and per block
+``mining_rounds_total`` and ``hashes_tried_total`` per consumed sweep, the
+``miner_heartbeat`` gauge stamped after every sweep and every append (so a
+long block does not read as a stalled miner), and per block
 ``blocks_mined_total`` and the ``block_latency_ms`` histogram; the
-pipelined driver counts ``speculative_discards_total{reason}``. Both
-carry the reference's spans: ``miner.block`` around a block,
-``miner.sweep`` around each search (in the pipelined driver, around the
-consume of a dispatch), ``miner.append`` around the C++ append. Three
-seams are the reference's: ``payload_for`` (the template feed),
-``_begin_block`` (runs before a block's first sweep; the elastic world
-supervises and re-stripes there) and ``_block_mined`` (runs after every
-append; the serving front door marks transactions included there, the
-elastic world writes its causal record).
+pipelined driver counts ``speculative_discards_total{reason}``. Both carry
+the reference's spans: ``miner.block`` around a block, ``miner.sweep``
+around each search (in the pipelined driver, around the consume of a
+dispatch), ``miner.append`` around the C++ append; and the port's own:
+``miner.issue`` around an issue, ``miner.window`` around a consume's
+record of its device window, ``blocktrace.observe`` around a block's
+observation. Three seams are the reference's: ``payload_for`` (the
+template feed), ``_begin_block`` (runs before a block's first sweep; the
+elastic world supervises and re-stripes there) and ``_block_mined`` (runs
+after every append; the serving front door marks transactions included
+there, the elastic world writes its causal record).
 
 Both drivers trace every block as the reference does: a
 ``blocktrace.trace_block`` frame around the block (and one per template),
@@ -85,9 +86,8 @@ on the card (or at the previous window's end) and closes with the
 consume (``_world_window``). Where the search has none of these (the
 plain sweep, a retried search) the window is the call that did the
 work: the issue call of a synchronous ``search_async``, else the
-consume. The ``enqueue`` segment covers the
-candidate build and the issue call (on the card, the host's midstate
-precompute and the launch).
+consume. The ``enqueue`` segment covers the candidate build and the
+issue call (on the card, the host's midstate precompute and the launch).
 """
 from __future__ import annotations
 
@@ -373,7 +373,8 @@ class Miner:
             if on_block is not None:
                 with trace_block(rec.height):
                     on_block(rec)
-            observe_block_metrics(rec.height, records=self._trace_records)
+            with span("blocktrace.observe"):
+                observe_block_metrics(rec.height, records=self._trace_records)
         return records
 
     # ---- the double-buffered pipeline -------------------------------------
@@ -382,12 +383,12 @@ class Miner:
                      windows: _WindowSet, w_idx: int,
                      cand_fn: Callable[[], bytes],
                      backend_name: str) -> _SweepDispatch:
-        """Issues one sweep through the backend's ``search_async`` seam.
-        The candidate build and the issue call are the ``enqueue``
-        segment; the device window is recorded at the consume, from the
-        sweep's stamps, which only a traced issue asks for."""
+        """Issues one sweep through ``search_async``, in ``miner.issue``.
+        The candidate build and the issue call are the ``enqueue`` segment;
+        the consume records the device window from the sweep's stamps."""
         w_start, w_end = windows.get(w_idx)
-        with trace_block(height, template=template):
+        with trace_block(height, template=template), \
+                span("miner.issue", height=height):
             prec = profiler().dispatch(kind="sweep", height=height,
                                        backend=backend_name)
             with prec.segment("enqueue"), \
@@ -404,11 +405,10 @@ class Miner:
 
     def _consume(self, d: _SweepDispatch):
         """Blocks on one dispatch's result, strictly in issue order (the
-        lowest-nonce rule), bounded by ``MPIBT_DISPATCH_TIMEOUT`` so that a
-        wedged sweep surfaces as a loud failure instead of a silent hang.
-        The resilient backend's future polls the sweep on the card against
-        the deadline, then reads it back on this thread. Records the
-        dispatch's device window with its own block identity."""
+        lowest-nonce rule), bounded by ``MPIBT_DISPATCH_TIMEOUT``: a wedged
+        sweep fails loudly, not as a silent hang. The resilient backend's
+        future polls the card against the deadline, then reads back here.
+        Records the window under its block's identity (``miner.window``)."""
         with span("miner.sweep", height=d.height, extra_nonce=d.template):
             t_wait = d.prec.now()
             try:
@@ -428,12 +428,13 @@ class Miner:
             t_done = d.prec.now()
         if telemetry_disabled():
             return res
-        # Sweeps on the card finish in issue order: every discarded one
-        # issued before this one is done now too.
-        self._drain_card()
-        t0, t1 = self._device_window(d, t_wait, t_done)
-        with trace_block(d.height, template=d.template):
-            d.prec.add_segment("device", t0, t1)
+        with span("miner.window", height=d.height):
+            # Sweeps on the card finish in issue order: every discarded one
+            # issued before this one is done now too.
+            self._drain_card()
+            t0, t1 = self._device_window(d, t_wait, t_done)
+            with trace_block(d.height, template=d.template):
+                d.prec.add_segment("device", t0, t1)
         return res
 
     def _device_window(self, d: _SweepDispatch, t_wait: float,
@@ -577,8 +578,9 @@ class Miner:
                     # already on the card.
                     with trace_block(rec.height):
                         on_block(rec)
-                observe_block_metrics(rec.height,
-                                      records=self._trace_records)
+                with span("blocktrace.observe"):
+                    observe_block_metrics(rec.height,
+                                          records=self._trace_records)
         except BaseException:
             # The still-queued speculation must not leave block
             # identities on records of work that will be re-issued.

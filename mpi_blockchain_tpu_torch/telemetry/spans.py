@@ -24,7 +24,15 @@ Names are the reference's dotted ``layer.operation`` names:
 ``miner.block``, ``miner.sweep``, ``miner.append``, ``fused.dispatch``,
 ``backend.cpu.search``, and ``backend.cuda.dispatch`` /
 ``backend.cuda.host_tail``, the counterparts of ``backend.tpu.dispatch``
-/ ``backend.tpu.host_tail``.
+/ ``backend.tpu.host_tail``. Seven more are the port's own, around host
+work that would otherwise fall between spans while the card waits:
+``fused.inputs`` (a k-block call's payloads and digests) and
+``fused.validate`` (its blocks' validation and append), ``miner.issue``
+(a sweep's record, candidate and launch) and ``miner.window`` (the
+consume's record of its device window), ``backend.cuda.midstate`` and
+``backend.cuda.launch`` (the two halves of ``backend.cuda.dispatch``),
+and, in both miners, ``blocktrace.observe`` around the critical-path
+observation.
 """
 from __future__ import annotations
 

@@ -60,14 +60,22 @@ materializes). In a world each round's winner-select is a
 through ``log_fn``, by default the event stream), are made in that
 block's ``trace_block`` frame, so each block of a call keeps its own
 and its records carry its trace stamp; a recovery bail-out strips the
-block identity of the calls it abandons (``strip_block_identity``); and
-``observe_batch_metrics`` observes the span's blocks after the
-``on_progress`` seam. The first use of each k-block program is a compile
-in the ``dispatchwatch`` census (site ``fused``). Spans: ``fused.inputs``,
-``fused.dispatch`` and ``fused.validate`` around a call's inputs, enqueue
-and blocks, ``miner.append`` around each C++ append, ``blocktrace.observe``
-around a span's observation. The recovery search goes through the resilient
-backend (``backend_from_config``) as the reference's: retries, step-down.
+block identity of the calls it abandons (``strip_block_identity``).
+``observe_batch_metrics`` observes each call's blocks from the call's own
+record as soon as they are appended, while the calls dispatched after it
+run on the card; the span's last call, or the call a recovery cut short,
+is observed after the ``on_progress`` seam, from the records opened since
+it (the recovery's, and the newest, which the checkpoint segment joins),
+never from the ring's older records. Heights go in ascending order either
+way, so the histograms see one pass over the span's records.
+``fused_observed_blocks_total{at}`` counts the blocks observed with later
+calls queued (``in_flight``) and after the span drained (``drain``). The
+first use of each k-block program is a compile in the ``dispatchwatch``
+census (site ``fused``). Spans: ``fused.inputs``, ``fused.dispatch`` and
+``fused.validate`` around a call's inputs, enqueue and blocks,
+``miner.append`` around each C++ append, ``blocktrace.observe`` around
+each observation. The recovery search goes through the resilient backend
+(``backend_from_config``) as the reference's: retries, step-down.
 """
 from __future__ import annotations
 
@@ -92,6 +100,8 @@ from ..meshprof.spans import skew_span
 from ..meshwatch.pipeline import profiler, strip_block_identity
 from ..ops import resolve_kernel, sha256_block, sha256_cuda
 from ..parallel.mesh import winner_select
+from ..telemetry import counter
+from ..telemetry.registry import telemetry_disabled
 from ..telemetry.spans import span
 from ..utils.logging import block_logger
 
@@ -403,22 +413,46 @@ class FusedMiner:
         """Mines n_blocks; validates and appends every block in C++.
         ``on_progress(height)`` runs after each appended span, in the
         newest block's trace frame (its checkpoint segment joins that
-        block); the span's blocks are observed after it."""
+        block). Each call's blocks are observed once appended, while the
+        calls after it run; the span's last call (or the call a recovery
+        cut short) after ``on_progress``, with the records opened since
+        it: the recovery's, and the one the checkpoint segment lands on."""
         n = n_blocks if n_blocks is not None else self.config.n_blocks
         while n > 0:
             start = self.node.height
-            mined = self._mine_span(n)
+            tail = self._mine_span(n)
+            mined = self.node.height - start
             n -= mined
             if on_progress is not None and mined:
                 with trace_block(self.node.height):
                     on_progress(self.node.height)
-            if mined:
-                # One grouping pass over the span's own records: a record
-                # a call, one more for a recovery, the checkpoint's.
-                with span("blocktrace.observe"):
-                    observe_batch_metrics(
-                        [start + j + 1 for j in range(mined)],
-                        profiler().records(tail=mined + 8))
+            if mined and not telemetry_disabled():
+                self._observe(tail.height, self.node.height,
+                              self._records_since(tail.prec.record),
+                              at="drain")
+
+    @staticmethod
+    def _observe(height: int, top: int, records: list[dict],
+                 at: str) -> None:
+        """Observes the blocks (height, top] from ``records``, in height
+        order; ``at`` says whether later calls were on the card
+        (``in_flight``) or the span had drained (``drain``)."""
+        with span("blocktrace.observe"):
+            observe_batch_metrics(range(height + 1, top + 1), records)
+        counter("fused_observed_blocks_total",
+                help="fused blocks whose critical path was observed, by "
+                     "whether later calls were queued on the card",
+                at=at).inc(top - height)
+
+    @staticmethod
+    def _records_since(record: dict) -> list[dict]:
+        """``record``, live, and copies of the records opened after it;
+        the ring's older records are not read."""
+        newest = profiler().records(tail=1)
+        later = newest[0]["dispatch"] - record["dispatch"] if newest else 0
+        if later <= 0:
+            return [record]
+        return [record] + profiler().records(tail=later)
 
     def _to_device(self, words: np.ndarray) -> torch.Tensor:
         """uint32 words as a tensor on the run's device; to a card through a
@@ -428,17 +462,21 @@ class FusedMiner:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _mine_span(self, n: int) -> int:
+    def _mine_span(self, n: int) -> _Batch:
         """Enqueues ceil(n / blocks_per_call) calls back to back, at most
         ``pipeline_depth`` in flight, and validates and appends batch by
         batch. Call i + 1's prev_hash is call i's tip tensor, so calls
         queue with no host round trip between them (in a world, call i + 1
-        starts after call i was waited for, before its validation).
+        starts after call i was waited for, before its validation). A
+        call's blocks are observed once appended if a later call is
+        queued.
 
-        Returns the number of blocks appended, short only when a block fails
-        C++ validation: that height is then re-mined through the extra-nonce
-        rollover (or diagnosed as a kernel bug), the calls in flight are
-        dropped, and the caller's loop starts again from the new tip."""
+        Returns the call whose blocks from its height up to the new tip
+        are left to observe: the span's last, or the one a block failing
+        C++ validation cut short. That height is then re-mined through the
+        extra-nonce rollover (or diagnosed as a kernel bug), the calls in
+        flight are dropped, and the caller's loop starts again from the
+        new tip."""
         start = self.node.height
         prev = self._to_device(_words_be(self.node.tip_hash))
         batches: collections.deque[_Batch] = collections.deque()
@@ -501,12 +539,17 @@ class FusedMiner:
                             for stale in batches:
                                 strip_block_identity(stale.prec.record)
                             self._recover_block(h, nonces[j])
-                            return self.node.height - start
+                            return batch
                         self._log({"event": "block_mined",
                                    "backend": "cuda-fused", "height": h,
                                    "nonce": nonces[j],
                                    "hash": self.node.tip_hash.hex()})
-        return self.node.height - start
+            if batches and not telemetry_disabled():
+                # Behind the calls still queued on the card: this call's
+                # own record holds every segment of its blocks.
+                self._observe(batch.height, self.node.height,
+                              [prec.record], at="in_flight")
+        return batch
 
     def _recover_block(self, height: int, device_nonce: int) -> None:
         """A device block failed C++ validation. Either the sweep range

@@ -8,7 +8,8 @@ call's input build and its blocks' validation, ``miner.issue`` and
 ``miner.window`` around a pipelined sweep's issue and the record of its
 device window, ``backend.cuda.midstate`` and ``backend.cuda.launch`` inside
 ``backend.cuda.dispatch``, and ``blocktrace.observe`` around each miner's
-critical-path observation.
+critical-path observation (a block's in ``Miner``, a call's in
+``FusedMiner``).
 """
 import json
 import os
@@ -67,18 +68,22 @@ def test_fused_miner_files_its_host_spans_per_call_and_per_span():
     assert [s.attrs["height"] for s in appends] == [1, 2, 3]
     assert all(s.parent == "fused.validate" and s.depth == 1
                for s in appends)
-    # The observation of the one span of calls mine_chain mined.
+    # One observation a call: the first while the second is queued, the
+    # second, the span's last, after the span drained.
     observe = _spans("blocktrace.observe")
-    assert len(observe) == 1 and observe[0].parent is None
+    assert len(observe) == 2
+    assert all(s.parent is None and s.depth == 0 for s in observe)
     assert _spans("miner.issue") == _spans("miner.window") == []
 
 
 def test_fused_miner_observes_once_per_span_of_calls():
+    # The name predates the per-call rule: each call of each span is
+    # observed once, mine_chain(2)'s one call and mine_chain(3)'s two.
     miner = FusedMiner(_cfg(), blocks_per_call=2, log_fn=lambda d: None)
     miner.mine_chain(2)
     miner.mine_chain(3)
     assert miner.node.height == 5
-    assert len(_spans("blocktrace.observe")) == 2
+    assert len(_spans("blocktrace.observe")) == 3
     assert len(_spans("fused.validate")) == len(_spans("fused.inputs")) == 3
 
 
